@@ -1,0 +1,37 @@
+"""Model factory (port of ``depthestimation_tpu/models/factory.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from depthestimation_tpu_torch.models.base_model import BaseModelNet
+from depthestimation_tpu_torch.models.layers import init_weights
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def get_model(cfg, device="cpu", seed: int | None = None) -> BaseModelNet:
+    """Build ``cfg.data.model_name`` on ``device`` in eval mode.
+
+    The compute dtype is ``tpu.dtype``; the other ``tpu`` keys are
+    TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With ``seed`` the
+    weights are drawn from a ``torch.Generator`` seeded with it; without,
+    they are left for ``load_state_dict``.
+    """
+    name = cfg.data.model_name
+    if name != "base":
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    dtype = _DTYPES[cfg.get("tpu", {}).get("dtype", "float32")]
+    model = BaseModelNet(
+        feature_dim=cfg.var.feature_dim, d=cfg.var.ndepth,
+        nmode=cfg.var.nmode, bn_avg=cfg.var.bn_avg,
+        sigma_soft_max=cfg.var.sigma_soft_max,
+        n_views=int(cfg.var.get("t_win", 1)) + 1, dtype=dtype)
+    if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
+        raise NotImplementedError("the gather sweep is not ported yet "
+                                  "(ROADMAP.md, queue 1)")
+    if seed is not None:
+        gen = torch.Generator().manual_seed(int(seed))
+        init_weights(model, gen)
+    return model.to(device).eval()

@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, at first use, under the
+checkout's ``build/`` directory (listed in ``.gitignore``), and loaded with
+``ctypes``. The library's file name carries a hash of the sources and
+flags, so an edited kernel is never served from a stale build. Nothing is
+built or loaded at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> argtypes (every function returns cudaError_t)
+_SIGNATURES = {
+    "sweep_stage2_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                         _I, _I, _I, _I, _I, _I, _VP],
+    "convcomb_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+}
+
+
+class KernelLibrary:
+    """The loaded ``.so``: its C functions, the build's wall time and the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills)."""
+
+    def __init__(self, path: Path, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib.de_error_string.argtypes = [ctypes.c_int]
+        self._lib.de_error_string.restype = ctypes.c_char_p
+
+    def call(self, name: str, *args) -> None:
+        """Run one C launcher; raise if the launch was refused."""
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            msg = self._lib.de_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_lock = threading.Lock()
+_library: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand:
+        return cand
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _library
+    with _lock:
+        if _library is not None:
+            return _library
+        srcs = _sources()
+        digest = hashlib.sha256()
+        for p in srcs + sorted(CSRC.glob("*.cuh")):
+            digest.update(p.name.encode())
+            digest.update(p.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        target = BUILD_DIR / f"libde_kernels_{digest.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not target.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, target)     # atomic: concurrent builders agree
+        _library = KernelLibrary(target, time.perf_counter() - t0, log)
+        return _library
+
+
+def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,166 @@
+"""Decomposed plane sweep + diagonal feature warp, batched over B*V views.
+
+Port of the decomposed path of ``depthestimation_tpu/ops/plane_sweep.py``
+(``_homography_resample``, ``_affine_band_mats``, ``_sweep_mats`` and the
+body of ``_pallas_sweep_local``). For fronto-parallel planes the depth-d
+homography factors into one depth-independent homography resample by
+``A = K R K^-1`` (stage 1, a 4-tap bilinear gather) and, per depth, a
+separable bilinear resample ``Ry_d . src . Rx_d^T`` (stage 2: banded
+matmuls, ``ops/sweep_kernel.py``). Stage 1 and the band matrices are f32,
+as in JAX at HIGHEST precision.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from depthestimation_tpu_torch.ops.resample import fast_take
+from depthestimation_tpu_torch.ops.sweep_kernel import (sweep_stage2,
+                                                        sweep_stage2_plain)
+
+
+def _pad_flat(img: torch.Tensor) -> torch.Tensor:
+    """[..., C, H, W] -> zero-padded [..., C, (H+2)*(W+2)]."""
+    h, w = img.shape[-2:]
+    p = torch.nn.functional.pad(img, (1, 1, 1, 1))
+    return p.reshape(img.shape[:-2] + ((h + 2) * (w + 2),))
+
+
+def _tap_indices_weights(pix: torch.Tensor, h: int, w: int):
+    """Bilinear taps into a 1-px zero-padded flat image. pix [..., 2]
+    (x, y) array-index coords -> (idx [4, ...], weight [4, ...]); the
+    weights fold in the zero-padding border mask."""
+    wp = w + 2
+    x, y = pix[..., 0], pix[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+
+    def tap(xi, yi, wt):
+        valid = (xi >= -1) & (xi <= w) & (yi >= -1) & (yi <= h)
+        xc = torch.clamp(xi + 1, 0, wp - 1).long()
+        yc = torch.clamp(yi + 1, 0, h + 1).long()
+        return yc * wp + xc, torch.where(valid, wt, 0.0)
+
+    taps = [tap(x0, y0, (1 - fx) * (1 - fy)),
+            tap(x0 + 1, y0, fx * (1 - fy)),
+            tap(x0, y0 + 1, (1 - fx) * fy),
+            tap(x0 + 1, y0 + 1, fx * fy)]
+    return (torch.stack([i for i, _ in taps]),
+            torch.stack([wt for _, wt in taps]).float())
+
+
+def bilinear_sample_many(img: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """Sample img [N, C, H, W] at pix [N, ..., 2] -> [N, C, ...] with zero
+    padding (the JAX function vmapped over N)."""
+    h, w = img.shape[-2:]
+    flat = _pad_flat(img)
+    idx, wt = _tap_indices_weights(pix, h, w)
+    out = 0.0
+    for t in range(4):
+        out = out + fast_take(flat, idx[t]) * wt[t][:, None]
+    return out
+
+
+def homography_resample(feat: torch.Tensor, rot: torch.Tensor,
+                        intr: torch.Tensor) -> torch.Tensor:
+    """Stage 1: resample feat [N, C, H, W] by ``A = K R K^-1`` onto the
+    reference grid (rot, intr [N, 3, 3]). Identity rotation reproduces the
+    input exactly: K^-1 is the closed form, as in JAX."""
+    n, c, h, w = feat.shape
+    dev = feat.device
+    fx, fy = intr[:, 0, 0], intr[:, 1, 1]
+    cx, cy = intr[:, 0, 2], intr[:, 1, 2]
+    k_inv = torch.eye(3, dtype=intr.dtype, device=dev).repeat(n, 1, 1)
+    k_inv[:, 0, 0] = 1.0 / fx
+    k_inv[:, 0, 2] = -cx / fx
+    k_inv[:, 1, 1] = 1.0 / fy
+    k_inv[:, 1, 2] = -cy / fy
+    a_mat = torch.matmul(torch.matmul(intr, rot), k_inv)
+    u = (torch.arange(w, dtype=torch.float32, device=dev)[None] + 0.5
+         + (cx - 0.5 * w)[:, None])                                # [N, W]
+    v = (torch.arange(h, dtype=torch.float32, device=dev)[None] + 0.5
+         + (cy - 0.5 * h)[:, None])                                # [N, H]
+    grid = torch.stack([u[:, None, :].expand(n, h, w),
+                        v[:, :, None].expand(n, h, w),
+                        torch.ones((n, h, w), dtype=torch.float32,
+                                   device=dev)], dim=1)            # [N,3,H,W]
+    q = torch.einsum("nij,njhw->nihw", a_mat, grid)
+    q = q / (q[:, 2:3] + 1e-10)
+    pix = torch.stack([q[:, 0] - 0.5, q[:, 1] - 0.5],
+                      dim=-1).reshape(n, h * w, 2)
+    return bilinear_sample_many(feat, pix).reshape(n, c, h, w)
+
+
+def affine_band_mats(d_candi: torch.Tensor, m: torch.Tensor, h: int, w: int,
+                     dxy):
+    """Banded bilinear resample matrices of the per-depth global affine,
+    batched over views: m [N, 3], dxy = (dx [N], dy [N]).
+
+    Returns (Rx [N, D, W, W], Ry [N, D, H, H]); a row that maps outside the
+    image is all-zero (zero padding), and a plane behind the camera
+    (1 + m2/d == 0) takes the 1e12 sentinel scale, as in JAX.
+    """
+    d = d_candi.to(torch.float32)[None]                             # [1, D]
+    denom = 1.0 + m[:, 2:3] / d                                     # [N, D]
+    inv = torch.where(torch.abs(denom) > 1e-10, 1.0 / denom,
+                      torch.full_like(denom, 1e12))
+
+    def band(size: int, off, delta):
+        i = torch.arange(size, dtype=torch.float32, device=d.device)
+        a = ((i[None, None, :] + 0.5 + delta[:, None, None]
+              + off[:, :, None]) * inv[:, :, None]
+             - 0.5 - delta[:, None, None])                           # [N,D,n]
+        return torch.clamp(1.0 - torch.abs(a[..., None] - i), min=0.0)
+
+    return (band(w, m[:, 0:1] / d, dxy[0]), band(h, m[:, 1:2] / d, dxy[1]))
+
+
+def sweep_mats(d_candi, rot, tra, intr, h: int, w: int):
+    """(Rx, Ry) of each view's depth sweep. rot [N, 3, 3], tra [N, 3],
+    intr [N, 3, 3]."""
+    m = torch.matmul(intr, torch.matmul(rot.transpose(-1, -2),
+                                        tra[..., None]))[..., 0]    # [N, 3]
+    dxy = (intr[:, 0, 2] - 0.5 * w, intr[:, 1, 2] - 0.5 * h)
+    return affine_band_mats(d_candi, m, h, w, dxy)
+
+
+def plane_sweep_and_warp_batched(feat_all: torch.Tensor,
+                                 feat_raw: torch.Tensor,
+                                 d_candi: torch.Tensor, poses: torch.Tensor,
+                                 intr: torch.Tensor, sigma: float,
+                                 dtype=torch.float32,
+                                 use_kernel: bool = True):
+    """Whole-batch decomposed sweep (``_pallas_sweep_local``).
+
+    feat_all [B, T, C1, h, w]; feat_raw [B, T, D, h, w]; poses
+    [B, T, 4, 4] (last view = reference); intr [B, 3, 3].
+    Returns (cost [B, D, h, w] f32, warped [B, T, D, h, w] f32).
+
+    Stage 2 runs in ``dtype``: bf16 goes through the kernel wrapper
+    (``sweep_stage2``), f32 through the plain version, as in JAX where the
+    sweep kernel is bf16-only. ``use_kernel=False`` sends bf16 through the
+    plain version too (to hold the kernel against it).
+    """
+    b, t, c1, h, w = feat_all.shape
+    v = t - 1
+    d = feat_raw.shape[2]
+    n = b * v
+    rots = poses[:, :-1, :3, :3].reshape(n, 3, 3)
+    tras = poses[:, :-1, :3, 3].reshape(n, 3)
+    intr_n = intr.repeat_interleave(v, dim=0)
+    f32 = torch.float32
+    fa_a = homography_resample(
+        feat_all[:, :-1].reshape(n, c1, h, w).to(f32), rots, intr_n)
+    fr_a = homography_resample(
+        feat_raw[:, :-1].reshape(n, d, h, w).to(f32), rots, intr_n)
+    rx, ry = sweep_mats(d_candi, rots, tras, intr_n, h, w)
+    rxt = rx.transpose(-1, -2).contiguous()
+    ref = feat_all[:, -1].to(dtype).contiguous()
+    stage2 = (sweep_stage2 if dtype == torch.bfloat16 and use_kernel
+              else sweep_stage2_plain)
+    cost_nv, diag_nv = stage2(fa_a.to(dtype), ref, fr_a.to(dtype),
+                              rxt.to(dtype), ry.to(dtype).contiguous(), v)
+    cost = cost_nv.reshape(b, v, d, h, w).sum(dim=1) / sigma
+    warped = torch.cat([diag_nv.reshape(b, v, d, h, w),
+                        feat_raw[:, -1:].to(f32)], dim=1)
+    return cost, warped

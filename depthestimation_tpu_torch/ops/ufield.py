@@ -1,0 +1,66 @@
+"""Uncertainty field (UF): top-down collapse of a DPV.
+
+Port of ``depthestimation_tpu/ops/ufield.py`` (``UFieldParams``,
+``gen_ufield``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from depthestimation_tpu_torch.ops.dpv import dpv_to_depthmap
+from depthestimation_tpu_torch.ops.geometry import depth_to_pts
+from depthestimation_tpu_torch.ops.resample import shift_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class UFieldParams:
+    """Dataset-dependent banding parameters."""
+    pshift: int = 5
+    zstart: float = 0.6
+    zend: float = 0.9
+    maxd: float = 100.0
+    mind: float = 0.0
+    quash: bool = False
+
+    @staticmethod
+    def from_sensor(unc_shift: float, unc_span: float, unc_ang: int) -> "UFieldParams":
+        return UFieldParams(pshift=int(unc_ang), zstart=unc_shift,
+                            zend=unc_shift + unc_span, maxd=100.0, mind=3.0,
+                            quash=True)
+
+
+def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
+               log: bool = True):
+    """Collapse one item's DPV [D, H, W] into a top-down field.
+
+    Returns (uf [D, W], masked_depthmap [H, W]). A column with no pixel in
+    the band divides by zero, as in JAX.
+    """
+    p = params
+    dpv_shifted = shift_rows(dpv, p.pshift)
+    dm_shifted = dpv_to_depthmap(dpv_shifted[None], d_candi, log=log)[0]
+    dm_pred = dpv_to_depthmap(dpv[None], d_candi, log=log)[0]
+
+    pts = depth_to_pts(dm_shifted, intr_up)
+    zero_mask = ~((pts[1] > p.zend) | (pts[1] < p.zstart)
+                  | (pts[2] > p.maxd - 1) | (pts[2] < p.mind))
+    zero_mask = zero_mask.to(dpv.dtype)
+
+    if p.quash:
+        cleaned = dm_shifted * zero_mask
+        cleaned = torch.where(cleaned == 0, 1000.0, cleaned)
+        col_min = cleaned.min(dim=0).values
+        quash_mask = ((cleaned > col_min - 1.0)
+                      & (cleaned < col_min + 1.0)).to(dpv.dtype)
+        zero_mask = zero_mask * quash_mask
+
+    zero_mask_pred = shift_rows(zero_mask, -p.pshift)
+    dm_pred_zero = dm_pred * zero_mask_pred
+
+    prob = torch.exp(dpv) if log else dpv
+    uf = (prob * zero_mask_pred[None]).sum(dim=1)
+    uf = uf / zero_mask.sum(dim=0)[None]
+    return uf, dm_pred_zero

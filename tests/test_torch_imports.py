@@ -1,0 +1,58 @@
+"""The port is self-contained: importing depthestimation_tpu_torch and
+every module under it loads neither JAX, flax nor the JAX package, and
+builds nothing (the CUDA kernels build at first use)."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import depthestimation_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+from depthestimation_tpu_torch.ops import cuda_lib
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "jaxlib", "flax", "depthestimation_tpu")),
+    "built": cuda_lib._library is not None}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["modules"]) >= 15, got["modules"]
+    assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
+    assert "jax" not in got["foreign"]
+    assert got["built"] is False
+
+
+def test_ctypes_signatures_match_the_c_launchers():
+    """Every C launcher in csrc/ is bound with one ctypes argtype per
+    parameter, pointer for pointer (a mismatch only shows on the card)."""
+    import ctypes
+    import re
+
+    from depthestimation_tpu_torch.ops import cuda_lib
+
+    decls = {}
+    for src in cuda_lib.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            decls[name] = [p.strip() for p in params.split(",")]
+    assert set(decls) == set(cuda_lib._SIGNATURES)
+    for name, params in decls.items():
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params]
+        assert cuda_lib._SIGNATURES[name] == want, name
