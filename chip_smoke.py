@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch / CUDA port's serving path on one NVIDIA GPU.
+"""Chip check of the PyTorch / CUDA port on one NVIDIA GPU: the serving
+path and the bf16 train step.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -9,8 +10,9 @@ Phases, one line each (a failed phase exits non-zero before the result):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds ``depthestimation_tpu_torch/csrc/*.cu``;
-3. every kernel of the path against its plain PyTorch version on the card,
-   at the shapes the main path gives it, with times from CUDA events;
+3. every kernel of the paths, forward and backward, against its plain
+   PyTorch version on the card, at the shapes the main paths give it,
+   with times from CUDA events;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -18,7 +20,15 @@ Phases, one line each (a failed phase exits non-zero before the result):
 5. the flagship forward of ``bench.py`` (384x256, D 64, exp7_lc) at batch
    1 and 8, through the kernels and through the plain path with the same
    weights, both held to an f32 plain forward (tests/TOLERANCES.md rule 4),
-   with ms and frames/s from CUDA events.
+   with ms and frames/s from CUDA events;
+6. the train step of ``bench_train.py`` (exp7, 384x256, D 64, bf16, Adam
+   lr 1e-5, both camera sides, BaseLoss) at batch 8 and 1 on synthetic
+   batches with on-device soft labels: 4 Adam steps through the kernels
+   (loss finite, lower after them; per step 2 sweep and 16 Base3D launches
+   forward and backward); the gradients of one step held to an f32 plain
+   step by rule 4 against the plain bf16 step; ms per step of both paths
+   in turns, its split into forward, backward and optimizer, and the peak
+   memory.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -72,7 +82,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cfg_for(feature_dim, ndepth, w, h, dtype):
+def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1):
+    """``__graft_entry__._cfg`` (the config of bench.py and
+    bench_train.py) with ``tpu.dtype``."""
     from depthestimation_tpu_torch.config import config_from_dict
     return config_from_dict({
         "data": {"exp_name": "chip_smoke", "model_name": "base",
@@ -81,8 +93,13 @@ def cfg_for(feature_dim, ndepth, w, h, dtype):
         "var": {"sigma_soft_max": 10.0, "t_win": 1, "d_min": D_MIN,
                 "d_max": D_MAX, "feature_dim": feature_dim,
                 "ndepth": ndepth, "softce": 0.3, "qpower": 1.0,
-                "img_size": [w, h], "crop_w": w, "nmode": "exp7_lc",
+                "img_size": [w, h], "crop_w": w, "nmode": nmode,
                 "bn_avg": False},
+        "loss": {"ce_mul": 1.0, "dsc_mul": 1.0, "rsc_mul": 1.0,
+                 "smooth_mul": 0.5, "dc_mul": 0.25, "rsc_low_mul": 0.0},
+        "train": {"batch_size": batch, "lr": 1e-5, "epoch_num": 1,
+                  "n_gpu": 1, "optim": "adam", "beta": 0.999,
+                  "momentum": 0.9, "weight_decay": 1e-6, "bias_decay": 0.0},
         "tpu": {"dtype": dtype},
     })
 
@@ -114,9 +131,11 @@ def sweep_inputs(n, c1, d, h, w, gen, dev):
 def phase_kernels(card):
     import torch
     from depthestimation_tpu_torch.ops.convcomb_kernel import (
-        convbn_block, convbn_block_plain)
+        convbn_block, convbn_block_bwd, convbn_block_bwd_plain,
+        convbn_block_plain)
     from depthestimation_tpu_torch.ops.sweep_kernel import (
-        sweep_stage2, sweep_stage2_plain)
+        sweep_stage2, sweep_stage2_bwd, sweep_stage2_bwd_plain,
+        sweep_stage2_plain)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -142,6 +161,28 @@ def phase_kernels(card):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
               flush=True)
         rows[("sweep_stage2", n)] = (err, ms, plain_ms)
+
+        # backward, rule 3: within 3% of max|plain| per gradient
+        gc = torch.randn(args[2].shape, generator=gen).to(dev)
+        gd = torch.randn(args[2].shape, generator=gen).to(dev)
+        got = sweep_stage2_bwd(*args, gc, gd, 1)
+        torch.cuda.synchronize()
+        want = sweep_stage2_bwd_plain(*args, gc, gd, 1)
+        errs = []
+        for g, p, nm in zip(got, want, ("dfa", "dref", "dfr")):
+            e = (g - p).abs().max().item()
+            bound = 3e-2 * p.abs().max().item()
+            check(np.isfinite(e) and e <= bound,
+                  f"sweep_stage2 backward N={n} {nm}: max|err| {e} > {bound}")
+            errs.append(e)
+        ms = cuda_ms(lambda: sweep_stage2_bwd(*args, gc, gd, 1), 5)
+        plain_ms = cuda_ms(lambda: sweep_stage2_bwd_plain(*args, gc, gd, 1),
+                           3)
+        print(f"phase 3: sweep_stage2 backward N={n}: max|err| dfa, dref, "
+              f"dfr {errs[0]:.4g}, {errs[1]:.4g}, {errs[2]:.4g} (max "
+              f"{max(p.abs().max().item() for p in want):.4g}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
+        rows[("sweep_stage2_bwd", n)] = (max(errs), ms, plain_ms)
 
     # convbn_block: the issue's padded-TPU shapes (C=8, F=32), (C=32, F=8)
     # and the port's own layers (C=5 entry, C=32 -> 32, C=32 -> 1)
@@ -180,6 +221,49 @@ def phase_kernels(card):
                     line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                              f"[{card}]")
                 print(line, flush=True)
+
+    # convbn_block backward at the path's (C, F): the bounds of
+    # tests/test_convcomb_pallas.py:99-122 (dx 3% of max away from the
+    # ReLU boundary, dW 3%, da and db 10%)
+    for c, f in ((5, 32), (32, 32), (32, 1)):
+        for n in (64, 512):
+            relu = c != 5
+            x = torch.randn(n, c, h * w, generator=gen).to(dev,
+                                                           torch.bfloat16)
+            wm = (torch.randn(3 * f, c, 3, 3, generator=gen) * 0.2).to(
+                dev, torch.bfloat16)
+            a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
+            b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+            y, _ = convbn_block_plain(x, wm, a, b, 64, h, w, relu)
+            gy = (torch.randn(y.shape, generator=gen) * 0.1).to(
+                dev, torch.bfloat16)
+            gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
+            bargs = (x, wm, a, b, y, gy, gs, 64, h, w, relu)
+            got = convbn_block_bwd(*bargs)
+            torch.cuda.synchronize()
+            want = convbn_block_bwd_plain(*bargs)
+            v = x.float() * a[None, :, None] + b[None, :, None]
+            inner = v.abs() > 0.02 if relu else torch.ones_like(v, dtype=bool)
+            errs = []
+            for g, p, nm, tol in zip(got, want, ("dx", "dW", "da", "db"),
+                                     (0.03, 0.03, 0.10, 0.10)):
+                g, p = g.float(), p.float()
+                d = (g - p).abs()
+                e = (d[inner] if nm == "dx" else d).max().item()
+                bound = tol * p.abs().max().item()
+                check(np.isfinite(e) and e <= bound,
+                      f"convbn_block backward N={n} C={c} F={f}: {nm} "
+                      f"max|err| {e} > {bound}")
+                errs.append(e)
+            line = (f"phase 3: convbn_block backward N={n} C={c} F={f} "
+                    f"relu={relu}: max|err| dx, dW, da, db "
+                    f"{', '.join(f'{e:.4g}' for e in errs)}")
+            if n == 512:
+                ms = cuda_ms(lambda: convbn_block_bwd(*bargs), 5)
+                plain_ms = cuda_ms(lambda: convbn_block_bwd_plain(*bargs), 5)
+                rows[("convbn_block_bwd", c, f)] = (max(errs), ms, plain_ms)
+                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+            print(line, flush=True)
     return rows
 
 
@@ -235,7 +319,6 @@ def phase_server(card):
     print(f"phase 4: NetRuntime mono_lc {w}x{h} fd=64 D=64 bf16 answered 4 "
           f"frames; launches {launches}; host ms per frame "
           f"{[round(t, 3) for t in times]} [{card}]", flush=True)
-    return launches
 
 
 # ------------------------------------------------------------ phase 5
@@ -297,6 +380,171 @@ def phase_flagship(card):
               f"[{card}]", flush=True)
 
 
+# ------------------------------------------------------------ phase 6
+
+def _train_batch(batch, w, h, dev):
+    """A synthetic batch on the card, its soft labels made there
+    (``trainer/default._soft_labels``, variance 0.3, as bench_train.py)."""
+    import torch
+    from depthestimation_tpu_torch.data.synthetic import make_batch, to_device
+    from depthestimation_tpu_torch.trainer.default import _soft_labels
+    mi_np, gt_np = make_batch(batch=batch, t_win=1, h=h, w=w, d_min=D_MIN,
+                              d_max=D_MAX, ndepth=64, qpower=1.0, seed=0)
+    mi = to_device(mi_np, dev)
+    gt = to_device({k: v for k, v in gt_np.items()
+                    if not k.startswith("soft_labels")}, dev)
+    d_candi = torch.as_tensor(mi_np["d_candi"], dtype=torch.float32,
+                              device=dev)
+    gt["soft_labels"] = _soft_labels(gt["dmaps"], gt["masks"], d_candi, 0.3)
+    gt["soft_labels_imgsize"] = _soft_labels(
+        gt["dmap_imgsizes"], gt["masks_imgsizes"], d_candi, 0.3)
+    return mi, gt
+
+
+def _grad_groups(model):
+    groups = {"encoder": "base_encoder.", "BV head": "conv0",
+              "Base3D": "based_3d.", "decoder": "base_decoder."}
+    import torch
+    return {g: torch.cat([p.grad.flatten() for k, p in
+                          model.named_parameters() if k.startswith(pre)])
+            for g, pre in groups.items()}
+
+
+def phase_train(card):
+    import copy
+
+    import torch
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.ops.convcomb_kernel import convbn_block
+    from depthestimation_tpu_torch.ops.sweep_kernel import sweep_stage2
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+
+    w, h = 384, 256
+    dev = torch.device("cuda")
+    floor = 4e-3
+    launches = None
+    for batch in (8, 1):
+        cfg = cfg_for(64, 64, w, h, "bfloat16", nmode="exp7", batch=batch)
+        cfg32 = cfg_for(64, 64, w, h, "float32", nmode="exp7", batch=batch)
+        step = make_train_step(get_loss(cfg))
+        mi, gt = _train_batch(batch, w, h, dev)
+        base = get_model(cfg, dev, seed=0)
+
+        # the gradients of one step from the same weights, three ways
+        grads, losses0 = {}, {}
+        for name, c, kernels in (("kernel", cfg, True), ("plain", cfg, False),
+                                 ("f32", cfg32, False)):
+            model = get_model(c, dev)
+            model.load_state_dict(base.state_dict())
+            model.use_kernels = kernels
+            state, loss, _ = step(init_state(model, c), mi, mi, gt, gt)
+            losses0[name] = loss.item()
+            grads[name] = _grad_groups(model)
+            del model, state
+        check(all(np.isfinite(v) for v in losses0.values()),
+              f"B={batch}: first-step losses {losses0}")
+        dists = {}
+        for name in ("kernel", "plain"):
+            d = {"loss": abs(losses0[name] - losses0["f32"])
+                 / abs(losses0["f32"])}
+            d.update({g: _dist(grads[name][g], grads["f32"][g])
+                      for g in grads["f32"]})
+            dists[name] = d
+        for k in dists["kernel"]:
+            bound = 3 * dists["plain"][k] + floor
+            check(dists["kernel"][k] <= bound,
+                  f"B={batch} {k}: kernel-vs-f32 {dists['kernel'][k]:.4g} >"
+                  f" 3 x plain-vs-f32 + floor = {bound:.4g}")
+        del grads
+
+        # 4 Adam steps through the kernels: the main path, counted
+        model = copy.deepcopy(base)
+        state = init_state(model, cfg)
+        sweep_stage2.launches = sweep_stage2.bwd_launches = 0
+        convbn_block.launches = convbn_block.bwd_launches = 0
+        losses = []
+        for i in range(5):              # the 5th forward: after 4 updates
+            before = (sweep_stage2.launches, sweep_stage2.bwd_launches,
+                      convbn_block.launches, convbn_block.bwd_launches)
+            state, loss, aux = step(state, mi, mi, gt, gt)
+            losses.append(loss.item())
+            got = tuple(a - b for a, b in zip(
+                (sweep_stage2.launches, sweep_stage2.bwd_launches,
+                 convbn_block.launches, convbn_block.bwd_launches), before))
+            check(got == (2, 2, 16, 16),
+                  f"B={batch} step {i}: launches (sweep fwd, bwd, convcomb "
+                  f"fwd, bwd) {got} != (2, 2, 16, 16)")
+            check(np.isfinite(losses[-1]), f"B={batch} step {i}: loss "
+                  f"{losses[-1]}")
+        check(losses[4] < losses[0],
+              f"B={batch}: loss {losses[0]} -> {losses[4]} after 4 steps")
+        check(tuple(aux["prev_output_left"].shape) == (batch, 64, h // 4,
+                                                       w // 4),
+              f"B={batch}: prev_output feedback "
+              f"{tuple(aux['prev_output_left'].shape)}")
+        if batch == 8:
+            launches = {
+                "sweep_stage2": sweep_stage2.launches,
+                "sweep_stage2_bwd": sweep_stage2.bwd_launches,
+                "convbn_block": convbn_block.launches,
+                "convbn_block_bwd": convbn_block.bwd_launches}
+
+        # ms per step, in turns (plain, kernel, kernel, plain), and the
+        # peak memory of one step of each path
+        def run(kernels, n):
+            model.use_kernels = kernels
+            nonlocal state
+            for _ in range(n):
+                state, _, _ = step(state, mi, mi, gt, gt)
+
+        t = {"plain": [], "kernel": []}
+        peak = {}
+        for k in ("plain", "kernel", "kernel", "plain"):
+            run(k == "kernel", 1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t[k].append(cuda_ms(lambda: run(k == "kernel", 1), 3, warmup=0))
+            peak[k] = torch.cuda.max_memory_allocated() / 2**30
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+
+        # one step through the kernels, split by CUDA events
+        model.use_kernels = True
+        opt = state.optimizer
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        loss_fn = get_loss(cfg)
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        outs = [model(mi), model(mi)]
+        ev[1].record()
+        loss = loss_fn(outs, [gt, gt])
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        split = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+        trail = " -> ".join(f"{x:.5g}" for x in losses)
+        rule4 = "; ".join(f"{k} {dists['kernel'][k]:.4g}, "
+                          f"{dists['plain'][k]:.4g}" for k in dists["kernel"])
+        fps = {k: 1e3 * batch / v for k, v in ms.items()}
+        print(f"phase 6: train step exp7 {w}x{h} D=64 bf16 B={batch}: loss "
+              f"{trail} over 4 Adam steps; launches per step (sweep fwd, "
+              f"bwd, convcomb fwd, bwd) (2, 2, 16, 16); rel dist from the "
+              f"f32 step (kernel, plain): {rule4}; ms per step kernel "
+              f"{ms['kernel']:.3f} ({fps['kernel']:.2f} frames/s), plain "
+              f"{ms['plain']:.3f} ({fps['plain']:.2f}); kernel step split "
+              f"ms: forward x2 {split[0]:.3f}, loss {split[1]:.3f}, "
+              f"backward {split[2]:.3f}, Adam {split[3]:.3f}; peak memory "
+              f"GiB kernel {peak['kernel']:.3f}, plain {peak['plain']:.3f} "
+              f"[{card}]", flush=True)
+        del model, state, base, outs, loss, opt
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -321,26 +569,28 @@ def main() -> int:
         print(f"phase 2: {os.path.relpath(lib.path, ROOT)} {how}",
               flush=True)
         rows = phase_kernels(card)
-        launches = phase_server(card)
+        phase_server(card)
         phase_flagship(card)
+        launches = phase_train(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    err_s, ms_s, pms_s = rows[("sweep_stage2", 8)]
-    err_c, ms_c, pms_c = rows[("convbn_block", 32, 32)]
-    kernels = [
-        {"name": "sweep_stage2", "route": "cuda",
-         "source": "depthestimation_tpu_torch/csrc/sweep_stage2.cu",
-         "replaces": "depthestimation_tpu/ops/sweep_pallas.py:151",
-         "launches": launches["sweep_stage2"], "max_abs_err": err_s,
-         "ms": ms_s, "plain_ms": pms_s},
-        {"name": "convbn_block", "route": "cuda",
-         "source": "depthestimation_tpu_torch/csrc/convcomb.cu",
-         "replaces": "depthestimation_tpu/ops/convcomb_pallas.py:140",
-         "launches": launches["convbn_block"], "max_abs_err": err_c,
-         "ms": ms_c, "plain_ms": pms_c},
-    ]
+    src = "depthestimation_tpu_torch/csrc/"
+    kernels = []
+    for name, key, source, replaces in (
+            ("sweep_stage2", ("sweep_stage2", 8), "sweep_stage2.cu",
+             "depthestimation_tpu/ops/sweep_pallas.py:151"),
+            ("sweep_stage2_bwd", ("sweep_stage2_bwd", 8), "sweep_stage2.cu",
+             "depthestimation_tpu/ops/sweep_pallas.py:192"),
+            ("convbn_block", ("convbn_block", 32, 32), "convcomb.cu",
+             "depthestimation_tpu/ops/convcomb_pallas.py:140"),
+            ("convbn_block_bwd", ("convbn_block_bwd", 32, 32), "convcomb.cu",
+             "depthestimation_tpu/ops/convcomb_pallas.py:258")):
+        err, ms, plain_ms = rows[key]
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,17 @@
+"""Loss factory (port of ``depthestimation_tpu/losses/factory.py``)."""
+
+from __future__ import annotations
+
+from depthestimation_tpu_torch.losses.base_loss import BaseLoss, DefaultLoss
+
+
+def get_loss(cfg, id: int = 0):
+    name = cfg.data.loss_name
+    if name == "base":
+        return BaseLoss(cfg, id)
+    if name == "default":
+        return DefaultLoss(cfg, id)
+    if name in ("sweep", "unflow"):
+        raise NotImplementedError(
+            f"loss {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    raise ValueError(f"unknown loss {name!r}")

@@ -1,10 +1,12 @@
-"""BaseModelNet: the recursive DPV network, serving (eval) forward.
+"""BaseModelNet: the recursive DPV network, eval and train forward.
 
 Port of ``depthestimation_tpu/models/base_model.py`` for nmodes ``exp7``
 and ``exp7_lc``: encoder -> decomposed plane sweep + diagonal feature warp
 -> BV head -> Base3D over [bv, prev_output, (prev_lc), warped] -> decoder.
 Layouts follow the JAX package: ``rgb [B, T, 3, H, W]`` in, DPVs
-``[B, D, h, w]`` out.
+``[B, D, h, w]`` out. ``.train()`` selects the train-mode forward: the
+only difference is the random ``prev_lc`` drop (``_drop_prev_lc``), whose
+draw comes from a ``torch.Generator`` the caller passes.
 
 Kernel dispatch is by configuration: a bf16 model runs plane-sweep stage 2
 and every Base3D layer on the Hopper kernels (``ops/sweep_kernel.py``,
@@ -37,7 +39,7 @@ class BaseModelNet(nn.Module):
     def __init__(self, feature_dim: int = 64, d: int = 64,
                  nmode: str = "exp7", bn_avg: bool = False,
                  sigma_soft_max: float = 10.0, n_views: int = 2,
-                 dtype=None):
+                 use_lc_prob: float = 0.7, dtype=None):
         super().__init__()
         if nmode not in NMODES:
             raise NotImplementedError(
@@ -45,6 +47,7 @@ class BaseModelNet(nn.Module):
                 f"{NMODES} (see ROADMAP.md, queue 1)")
         self.feature_dim, self.d, self.nmode = feature_dim, d, nmode
         self.sigma_soft_max = sigma_soft_max
+        self.use_lc_prob = use_lc_prob
         self.dtype = dtype
         #: False holds the bf16 path to the kernels' plain versions
         self.use_kernels = True
@@ -86,13 +89,26 @@ class BaseModelNet(nn.Module):
             return torch.full_like(like, float(fill))
         return prev
 
-    def forward(self, model_input: dict) -> dict:
-        """Eval forward. The training-only ``prev_lc`` drop
-        (``_drop_prev_lc``) draws no random numbers in eval."""
-        if self.training:
-            raise NotImplementedError(
-                "the train-mode forward belongs to the training slice "
-                "(ROADMAP.md, queue 1)")
+    def _drop_prev_lc(self, prev_lc, like, generator):
+        """In train mode, replace ``prev_lc`` by the log-uniform DPV with
+        probability ``1 - use_lc_prob``: one Bernoulli draw per forward from
+        ``generator`` (``base_model.py:526-536``). No draw when ``prev_lc``
+        is None (the log-uniform default) or in eval."""
+        uniform = self._prev_or_uniform(None, like, log=True)
+        if prev_lc is None:
+            return uniform
+        if not self.training:
+            return prev_lc
+        if generator is None:
+            raise ValueError("a train-mode forward with prev_lc draws the "
+                             "prev_lc drop: pass a torch.Generator")
+        keep = torch.rand((), generator=generator).item() < self.use_lc_prob
+        return prev_lc if keep else uniform
+
+    def forward(self, model_input: dict,
+                generator: torch.Generator | None = None) -> dict:
+        """Eval or train forward (``self.training``). ``generator`` feeds
+        the train-mode ``prev_lc`` drop of exp7_lc; nothing else draws."""
         rgb = model_input["rgb"]
         feat1, feat_raw, feat_all = self._encode(rgb)
         d_candi = torch.as_tensor(model_input["d_candi"],
@@ -108,8 +124,8 @@ class BaseModelNet(nn.Module):
             model_input.get("prev_output"), bv, log=self.nmode == "exp7_lc")
         planes = [bv[:, None], prev_output[:, None]]
         if self.nmode == "exp7_lc":
-            planes.append(self._prev_or_uniform(
-                model_input.get("prev_lc"), bv, log=True)[:, None])
+            planes.append(self._drop_prev_lc(
+                model_input.get("prev_lc"), bv, generator)[:, None])
         planes.append(warped)
         vol = torch.cat(planes, dim=1)                   # [B, C, D, h, w]
         resi = self.based_3d(vol, self.use_kernels)

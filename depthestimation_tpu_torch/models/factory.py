@@ -11,7 +11,8 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def get_model(cfg, device="cpu", seed: int | None = None) -> BaseModelNet:
-    """Build ``cfg.data.model_name`` on ``device`` in eval mode.
+    """Build ``cfg.data.model_name`` on ``device`` in eval mode
+    (``.train()`` switches to the train-mode forward).
 
     The compute dtype is ``tpu.dtype``; the other ``tpu`` keys are
     TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With ``seed`` the
@@ -27,7 +28,8 @@ def get_model(cfg, device="cpu", seed: int | None = None) -> BaseModelNet:
         feature_dim=cfg.var.feature_dim, d=cfg.var.ndepth,
         nmode=cfg.var.nmode, bn_avg=cfg.var.bn_avg,
         sigma_soft_max=cfg.var.sigma_soft_max,
-        n_views=int(cfg.var.get("t_win", 1)) + 1, dtype=dtype)
+        n_views=int(cfg.var.get("t_win", 1)) + 1,
+        use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype)
     if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
         raise NotImplementedError("the gather sweep is not ported yet "
                                   "(ROADMAP.md, queue 1)")

@@ -69,6 +69,45 @@ def _bn_coeffs(mean, var, scale, bias, eps):
     return a, bias - mean * a
 
 
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-channel [C] -> broadcastable against x [N, C, ...] in x's dtype."""
+    return v.to(x.dtype).reshape((1, -1) + (1,) * (x.dim() - 2))
+
+
+class _BNTrain(torch.autograd.Function):
+    """Batch-statistics normalization with the closed-form backward of
+    ``layers.py:bn_train_apply``: it saves the compute-dtype input and
+    three per-channel f32 vectors (no f32 copy of the activation), and
+    ``dx = g a + x b2 + c2`` with per-channel f32 coefficients, applied in
+    the input's dtype. ``mean`` and ``var`` are the batch statistics of
+    ``x`` (computed outside, without a graph): the closed form already
+    carries their dependence on ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, var, eps):
+        rstd = torch.rsqrt(var + eps)
+        a = rstd * scale
+        ctx.save_for_backward(x, mean, rstd, scale)
+        return x * _bcast(a, x) + _bcast(bias - mean * a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale = ctx.saved_tensors
+        dims = (0,) + tuple(range(2, x.dim()))
+        n = float(x.numel() // x.shape[1])
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        gf = g.to(torch.float32)
+        xhat = (x.to(torch.float32) - mean.reshape(shape)) * rstd.reshape(
+            shape)
+        sum_g = gf.sum(dim=dims)
+        sum_gx = (gf * xhat).sum(dim=dims)
+        a = scale * rstd
+        b2 = -a * (sum_gx / n) * rstd
+        c2 = -a * (sum_g / n) - b2 * mean
+        dx = g * _bcast(a, g) + x * _bcast(b2, x) + _bcast(c2, x)
+        return dx.to(x.dtype), sum_gx, sum_g, None, None, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with torch semantics and the JAX package's arithmetic.
 
@@ -79,7 +118,8 @@ class BatchNorm(nn.Module):
 
     Statistics are f32 ``(E[y], max(E[y^2] - E[y]^2, 0))`` over all but the
     channel axis (``layers.py:363-378, 509-510``); the normalization is
-    ``y * a + b`` in the input's dtype with per-channel f32 ``a, b``.
+    ``y * a + b`` in the input's dtype with per-channel f32 ``a, b``, and
+    its backward the closed form of ``bn_train_apply`` (``_BNTrain``).
     """
 
     def __init__(self, features: int, track_running_stats: bool = False,
@@ -93,13 +133,12 @@ class BatchNorm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(features))
             self.register_buffer("running_var", torch.ones(features))
 
+    @torch.no_grad()
     def _update_running(self, mean, var, count: float):
         unbiased = var * (count / max(count - 1.0, 1.0))
-        with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(
-                self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(
-                self.momentum * unbiased)
+        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+        self.running_var.mul_(1 - self.momentum).add_(
+            self.momentum * unbiased)
 
     def coeffs(self, mean, var, count: float):
         """Per-channel f32 (a, b) from batch statistics (or the running
@@ -113,20 +152,26 @@ class BatchNorm(nn.Module):
 
     def fused_coeffs(self, stats: torch.Tensor, count: float):
         """Kernel-produced sums [C, 2] -> the (a, b) the NEXT fused layer
-        applies on load (``BatchNorm._fused_coeffs``)."""
+        applies on load (``BatchNorm._fused_coeffs``). Gradients reach the
+        scale, the bias and the sums through these [C]-sized ops."""
         mean = stats[:, 0] / count
         var = torch.clamp(stats[:, 1] / count - mean * mean, min=0.0)
         return self.coeffs(mean, var, count)
 
     def forward(self, x):
+        if self.track_running_stats and not self.training:
+            a, b = _bn_coeffs(self.running_mean, self.running_var,
+                              self.weight, self.bias, self.eps)
+            return x * _bcast(a, x) + _bcast(b, x)
         dims = (0,) + tuple(range(2, x.dim()))
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-        count = float(x.numel() // x.shape[1])
-        a, b = self.coeffs(mean, var, count)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        with torch.no_grad():
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
+        if self.track_running_stats:
+            self._update_running(mean, var, float(x.numel() // x.shape[1]))
+        return _BNTrain.apply(x, self.weight, self.bias, mean, var, self.eps)
 
 
 class ConvBN(nn.Module):

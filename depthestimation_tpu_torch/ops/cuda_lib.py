@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first use, under the
-checkout's ``build/`` directory (listed in ``.gitignore``), and loaded with
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, under the checkout's
+``build/`` directory (listed in ``.gitignore``), and loaded with
 ``ctypes``. The library's file name carries a hash of the sources and
 flags, so an edited kernel is never served from a stale build. Nothing is
 built or loaded at import time: the CPU tests import every module on a
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,8 +33,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sweep_stage2_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                          _I, _I, _I, _I, _I, _I, _VP],
+    "sweep_stage2_bwd": [_VP] * 10 + [_I] * 6 + [_VP],
     "convcomb_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "convcomb_bwd": [_VP] * 13 + [_I] * 12 + [_VP],
 }
 
 
@@ -81,6 +84,31 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _build(srcs: list[Path], target: Path) -> str:
+    """Compile every source at once (one ``nvcc`` each), link them into
+    ``target``; returns the compilers' report."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [p.name for p, proc in zip(srcs, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{log}")
+        os.replace(so, target)      # atomic: concurrent builds agree
+    return log
+
+
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     global _library
@@ -98,15 +126,7 @@ def library() -> KernelLibrary:
         log = ""
         if not target.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, target)     # atomic: concurrent builders agree
+            log = _build(srcs, target)
         _library = KernelLibrary(target, time.perf_counter() - t0, log)
         return _library
 

@@ -26,7 +26,7 @@ def gen_soft_label(d_candi, depthmap, variance, zero_invalid: bool = False,
     ``zero_invalid`` replaces NaN columns (0/0) with -1.
     """
     depthmap = torch.as_tensor(depthmap, dtype=torch.float32)
-    d = torch.as_tensor(np.asarray(d_candi), dtype=torch.float32,
+    d = torch.as_tensor(d_candi, dtype=torch.float32,
                         device=depthmap.device).reshape(-1, 1, 1)
     sigma = torch.sqrt(torch.as_tensor(variance, dtype=torch.float32))
     dists = torch.exp(-(torch.abs(d - depthmap[..., None, :, :]) ** pow)

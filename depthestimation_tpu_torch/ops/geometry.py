@@ -1,8 +1,12 @@
-"""Camera geometry the serving path uses: rays, intrinsics, back-projection.
+"""Camera geometry: rays, intrinsics, back-projection, view synthesis.
 
 Port of ``depthestimation_tpu/ops/geometry.py`` (``intr_scale_unit``,
 ``fov_from_intrinsics``, ``pixel_to_ray_array``, ``unit_ray_array_2d``,
-``depth_to_pts``). The setup helpers stay host numpy, as in JAX.
+``depth_to_pts``, ``minpool``, ``pixel2cam``, ``cam2pixel``,
+``inverse_warp``, ``transform_dmap``). The setup helpers stay host numpy,
+as in JAX. The view-synthesis functions take a leading batch axis: each is
+the JAX per-item function vmapped. Their matmuls are f32 (JAX pins them to
+HIGHEST precision: they feed pixel coordinates).
 """
 
 from __future__ import annotations
@@ -11,6 +15,9 @@ import math
 
 import numpy as np
 import torch
+
+from depthestimation_tpu_torch.ops.resample import (grid_sample, hwarp,
+                                                    static_row_resample)
 
 
 def pixel_to_ray_array(width: int, height: int, hfov: float = 60.0,
@@ -48,12 +55,84 @@ def intr_scale_unit(intr, scale: float = 1.0):
 
 
 def depth_to_pts(depth: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
-    """Back-project a depth map. depth: [H, W]; returns [3, H, W]."""
-    h, w = depth.shape
-    fx, cx = intr[0, 0], intr[0, 2]
-    fy, cy = intr[1, 1], intr[1, 2]
-    ys = (torch.arange(h, dtype=depth.dtype, device=depth.device) - cy) / fy
-    xs = (torch.arange(w, dtype=depth.dtype, device=depth.device) - cx) / fx
-    x = xs[None, :] * depth
-    y = ys[:, None] * depth
-    return torch.stack([x, y, depth], dim=0)
+    """Back-project a depth map. depth [..., H, W], intr [..., 3, 3];
+    returns [..., 3, H, W]."""
+    h, w = depth.shape[-2:]
+    fx, cx = intr[..., 0, 0, None, None], intr[..., 0, 2, None, None]
+    fy, cy = intr[..., 1, 1, None, None], intr[..., 1, 2, None, None]
+    ys = (torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
+          - cy) / fy
+    xs = (torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :]
+          - cx) / fx
+    return torch.stack([xs * depth, ys * depth, depth], dim=-3)
+
+
+def minpool(x: torch.Tensor, scale: int, default: float = 0.0):
+    """Min-pool ([..., H, W]) by ``scale``; optional sentinel for zeros."""
+    if default:
+        x = torch.where(x == 0, default, x)
+    windows = x.reshape(x.shape[:-2] + (x.shape[-2] // scale, scale,
+                                        x.shape[-1] // scale, scale))
+    out = windows.amin(dim=(-3, -1))
+    if default:
+        out = torch.where(out == default, 0.0, out)
+    return out
+
+
+def pixel2cam(depth: torch.Tensor, intr_inv: torch.Tensor) -> torch.Tensor:
+    """depth [B, H, W], intr_inv [B, 3, 3] -> camera coords [B, 3, H, W]."""
+    b, h, w = depth.shape
+    dev, dt = depth.device, depth.dtype
+    jr = torch.arange(w, dtype=dt, device=dev)[None, :].expand(h, w)
+    ir = torch.arange(h, dtype=dt, device=dev)[:, None].expand(h, w)
+    pix = torch.stack([jr, ir, torch.ones((h, w), dtype=dt, device=dev)])
+    cam = torch.matmul(intr_inv, pix.reshape(3, h * w)).reshape(b, 3, h, w)
+    return cam * depth[:, None]
+
+
+def cam2pixel(cam_coords: torch.Tensor, rot: torch.Tensor,
+              tr: torch.Tensor) -> torch.Tensor:
+    """cam [B, 3, H, W], rot [B, 3, 3], tr [B, 3, 1] -> normalized pixel
+    grid [B, H, W, 2] in [-1, 1] (the align_corners=True convention)."""
+    b, _, h, w = cam_coords.shape
+    p = torch.matmul(rot, cam_coords.reshape(b, 3, h * w)) + tr
+    z = torch.clamp(p[:, 2], min=1e-3)
+    xn = 2.0 * (p[:, 0] / z) / (w - 1) - 1.0
+    yn = 2.0 * (p[:, 1] / z) / (h - 1) - 1.0
+    return torch.stack([xn, yn], dim=-1).reshape(b, h, w, 2)
+
+
+def inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
+                 intr: torch.Tensor, mode: str = "bilinear",
+                 impl: str = "gather"):
+    """Warp ``img`` (source) into the target frame given target ``depth``.
+
+    img [B, C, H, W]; depth [B, H, W]; pose [B, 4, 4] target->source;
+    intr [B, 3, 3]. Returns (warped [B, C, H, W], valid [B, H, W] bool).
+    ``impl="gather"``: the general 2-D ``grid_sample``; ``"hwarp"``: the
+    rectified-rig path (a fixed vertical blend, then a horizontal warp),
+    which folds pixels beyond its band into ``valid``.
+    """
+    cam = pixel2cam(depth, torch.linalg.inv(intr))
+    proj = torch.matmul(intr, pose[:, :3, :])
+    grid = cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+    inside = grid.abs().amax(dim=-1) <= 1.0
+    if impl == "hwarp":
+        img_v = static_row_resample(img, mode=mode, align_corners=False)
+        warped, in_band = hwarp(img_v, grid[..., 0], mode=mode,
+                                align_corners=False)
+        return warped, inside & in_band
+    if impl != "gather":
+        raise ValueError(f"unknown warp impl {impl!r}")
+    return grid_sample(img, grid, mode=mode, align_corners=False), inside
+
+
+def transform_dmap(depth: torch.Tensor, pose: torch.Tensor,
+                   intr: torch.Tensor) -> torch.Tensor:
+    """Re-project a depth map's z through ``pose``. depth [B, H, W], pose
+    [B, 4, 4], intr [B, 3, 3] -> [B, H, W]."""
+    b, h, w = depth.shape
+    d = torch.clamp(depth, min=1e-3)
+    pts = depth_to_pts(d, intr).reshape(b, 3, h * w)
+    pts = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
+    return torch.matmul(pose, pts)[:, 2].reshape(b, h, w)

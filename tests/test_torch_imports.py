@@ -31,7 +31,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 15, got["modules"]
+    assert len(got["modules"]) >= 30, got["modules"]
+    for name in ("losses.base_loss", "losses.blocks", "losses.factory",
+                 "parallel.train_step", "trainer.default"):
+        assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]
     assert got["built"] is False
