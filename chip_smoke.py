@@ -12,7 +12,10 @@ Phases, one line each (a failed phase exits non-zero before the result):
 2. build: ``nvcc`` builds ``depthestimation_tpu_torch/csrc/*.cu``;
 3. every kernel of the paths, forward and backward, against its plain
    PyTorch version on the card, at the shapes the main paths give it,
-   with times from CUDA events;
+   with times from CUDA events beside the plain version's, one PyTorch
+   library call's where one computes the same function (cuDNN's conv),
+   and the bound (bytes over 3.35 TB/s or bf16 operations over 989
+   TFLOP/s, whichever is larger);
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -22,13 +25,19 @@ Phases, one line each (a failed phase exits non-zero before the result):
    weights, both held to an f32 plain forward (tests/TOLERANCES.md rule 4),
    with ms and frames/s from CUDA events;
 6. the train step of ``bench_train.py`` (exp7, 384x256, D 64, bf16, Adam
-   lr 1e-5, both camera sides, BaseLoss) at batch 8 and 1 on synthetic
-   batches with on-device soft labels: 4 Adam steps through the kernels
-   (loss finite, lower after them; per step 2 sweep and 16 Base3D launches
-   forward and backward); the gradients of one step held to an f32 plain
-   step by rule 4 against the plain bf16 step; ms per step of both paths
-   in turns, its split into forward, backward and optimizer, and the peak
-   memory.
+   lr 1e-5, both camera sides, BaseLoss, ``tpu.convbn2d`` "auto": the
+   encoder's fused ConvBN chain) at batch 8 and 1 on synthetic batches
+   with on-device soft labels: 4 Adam steps through the kernels (loss
+   finite, lower after them; per step 2 sweep, 16 Base3D and 76 convbn2d
+   launches forward and backward); the gradients of one step held to an
+   f32 plain step by rule 4 against the plain bf16 step (both in the fused
+   route); ms per step in turns of the plain path, the kernel path and the
+   kernel path on the eager encoder (``tpu.convbn2d: false``), the kernel
+   step's split into forward, backward and optimizer, and each path's
+   peak memory;
+7. the decoder's fused tail (``tpu.convbn2d: true``): one B=1 train step
+   through the kernels with 38 + 3 convbn2d launches per forward, a finite
+   loss, and rule-4 gradients against an f32 plain step.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -46,6 +55,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 D_MIN, D_MAX = 5.0, 40.0
+# H100 SXM: HBM bytes/s and dense bf16 tensor-core FLOP/s (NVIDIA's data
+# sheet; the peaks assume the full 700 W power limit)
+HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
 
 
 class PhaseError(RuntimeError):
@@ -82,9 +94,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1):
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over HBM's rate and the operations over the
+    bf16 peak."""
+    tb, tf = n_bytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def row(err, ms, plain_ms, library_ms, bound_):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_[0],
+            "bound_by": bound_[1]}
+
+
+def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1,
+            convbn2d="auto"):
     """``__graft_entry__._cfg`` (the config of bench.py and
-    bench_train.py) with ``tpu.dtype``."""
+    bench_train.py) with ``tpu.dtype`` and ``tpu.convbn2d``."""
     from depthestimation_tpu_torch.config import config_from_dict
     return config_from_dict({
         "data": {"exp_name": "chip_smoke", "model_name": "base",
@@ -100,7 +131,7 @@ def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1):
         "train": {"batch_size": batch, "lr": 1e-5, "epoch_num": 1,
                   "n_gpu": 1, "optim": "adam", "beta": 0.999,
                   "momentum": 0.9, "weight_decay": 1e-6, "bias_decay": 0.0},
-        "tpu": {"dtype": dtype},
+        "tpu": {"dtype": dtype, "convbn2d": convbn2d},
     })
 
 
@@ -128,8 +159,36 @@ def sweep_inputs(n, c1, d, h, w, gen, dev):
             ry.contiguous().to(bf))
 
 
+def sweep_flops(rxt, ry, c1):
+    """Operations of one stage-2 forward on these band matrices, counted
+    on their nonzeros (the products are sparse by data): per view, depth
+    and channel (C1 features + the diagonal warp) ``F . Rx^T`` takes H MACs
+    per nonzero of Rx^T and ``Ry . s`` X MACs per nonzero of Ry; the cost
+    adds 3 operations per channel and output pixel."""
+    n, d, _, x_out = rxt.shape
+    y_out, h_in = ry.shape[-2:]
+    nx = (rxt != 0).sum(dim=(-2, -1)).double()
+    ny = (ry != 0).sum(dim=(-2, -1)).double()
+    macs = ((c1 + 1) * (h_in * nx + ny * x_out)).sum().item()
+    return 2.0 * macs + 3.0 * n * d * c1 * y_out * x_out
+
+
+def _conv_bwd(g, u, w):
+    """cuDNN's backward of a stride-1 'same' conv (data and weight
+    gradients, one call): the library yardstick of the backward kernels."""
+    import torch
+    k = u.dim() - 2
+    return torch.ops.aten.convolution_backward(
+        g, u, w, None, [1] * k, [1] * k, [1] * k, False, [0] * k, 1,
+        [True, True, False])
+
+
 def phase_kernels(card):
     import torch
+    import torch.nn.functional as F
+    from depthestimation_tpu_torch.ops.convbn2d_kernel import (
+        convbn2d_block, convbn2d_block_bwd, convbn2d_block_bwd_plain,
+        convbn2d_block_plain)
     from depthestimation_tpu_torch.ops.convcomb_kernel import (
         convbn_block, convbn_block_bwd, convbn_block_bwd_plain,
         convbn_block_plain)
@@ -150,17 +209,19 @@ def phase_kernels(card):
                   (diag - diag_p).abs().max().item())
         # rule 3: one kernel call vs the plain version, k = 1% of max|plain|
         for got, want, nm in ((cost, cost_p, "cost"), (diag, diag_p, "diag")):
-            bound = 1e-2 * want.abs().max().item()
+            bnd = 1e-2 * want.abs().max().item()
             e = (got - want).abs().max().item()
-            check(np.isfinite(e) and e <= bound,
-                  f"sweep_stage2 N={n} {nm}: max|err| {e} > {bound}")
+            check(np.isfinite(e) and e <= bnd,
+                  f"sweep_stage2 N={n} {nm}: max|err| {e} > {bnd}")
         ms = cuda_ms(lambda: sweep_stage2(*args, 1), 10)
         plain_ms = cuda_ms(lambda: sweep_stage2_plain(*args, 1), 5)
+        flops = sweep_flops(args[3], args[4], 67)
+        bd = bound(nbytes(*args, cost, diag), flops)
         print(f"phase 3: sweep_stage2 N={n} C1=67 D=64 64x96 bf16: max|err| "
               f"{err:.4g} (cost max {cost_p.abs().max().item():.4g}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
-              flush=True)
-        rows[("sweep_stage2", n)] = (err, ms, plain_ms)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bd[0]:.4f} ms ({bd[1]}) [{card}]", flush=True)
+        rows[("sweep_stage2", n)] = row(err, ms, plain_ms, None, bd)
 
         # backward, rule 3: within 3% of max|plain| per gradient
         gc = torch.randn(args[2].shape, generator=gen).to(dev)
@@ -171,22 +232,37 @@ def phase_kernels(card):
         errs = []
         for g, p, nm in zip(got, want, ("dfa", "dref", "dfr")):
             e = (g - p).abs().max().item()
-            bound = 3e-2 * p.abs().max().item()
-            check(np.isfinite(e) and e <= bound,
-                  f"sweep_stage2 backward N={n} {nm}: max|err| {e} > {bound}")
+            bnd = 3e-2 * p.abs().max().item()
+            check(np.isfinite(e) and e <= bnd,
+                  f"sweep_stage2 backward N={n} {nm}: max|err| {e} > {bnd}")
             errs.append(e)
         ms = cuda_ms(lambda: sweep_stage2_bwd(*args, gc, gd, 1), 5)
         plain_ms = cuda_ms(lambda: sweep_stage2_bwd_plain(*args, gc, gd, 1),
                            3)
+        # the backward recomputes the forward's products and runs their
+        # transposes: twice the forward's operations
+        bd = bound(nbytes(*args, gc, gd, *got), 2.0 * flops)
         print(f"phase 3: sweep_stage2 backward N={n}: max|err| dfa, dref, "
               f"dfr {errs[0]:.4g}, {errs[1]:.4g}, {errs[2]:.4g} (max "
               f"{max(p.abs().max().item() for p in want):.4g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
-        rows[("sweep_stage2_bwd", n)] = (max(errs), ms, plain_ms)
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
+              f"({bd[1]}) [{card}]", flush=True)
+        rows[("sweep_stage2_bwd", n)] = row(max(errs), ms, plain_ms, None,
+                                            bd)
 
     # convbn_block: the issue's padded-TPU shapes (C=8, F=32), (C=32, F=8)
     # and the port's own layers (C=5 entry, C=32 -> 32, C=32 -> 1)
     h, w = 64, 96
+
+    def conv3d_operands(x, wm, a, b, relu, c, f, n):
+        """The normalized bf16 input as [B, C, D, H, W] and the Conv3d
+        weight [F, C, 3, 3, 3]: cuDNN's conv3d computes the same conv."""
+        u = x.float() * a[None, :, None] + b[None, :, None]
+        u = (u.relu() if relu else u).to(torch.bfloat16)
+        u5 = u.reshape(n // 64, 64, c, h, w).transpose(1, 2).contiguous()
+        w5 = wm.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4).contiguous()
+        return u5, w5
+
     for c, f in ((8, 32), (32, 8), (5, 32), (32, 32), (32, 1)):
         for n in (64, 512):
             for relu in (False, True):
@@ -217,9 +293,15 @@ def phase_kernels(card):
                                                       relu), 10)
                     plain_ms = cuda_ms(lambda: convbn_block_plain(
                         x, wm, a, b, 64, h, w, relu), 10)
-                    rows[("convbn_block", c, f)] = (err, ms, plain_ms)
-                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                             f"[{card}]")
+                    u5, w5 = conv3d_operands(x, wm, a, b, relu, c, f, n)
+                    lib_ms = cuda_ms(lambda: F.conv3d(u5, w5, padding=1), 10)
+                    bd = bound(nbytes(x, wm, a, b, y, st),
+                               2.0 * n * h * w * 3 * f * 9 * c)
+                    rows[("convbn_block", c, f)] = row(err, ms, plain_ms,
+                                                       lib_ms, bd)
+                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                             f"cuDNN conv3d {lib_ms:.4f} ms, bound "
+                             f"{bd[0]:.4f} ms ({bd[1]}) [{card}]")
                 print(line, flush=True)
 
     # convbn_block backward at the path's (C, F): the bounds of
@@ -250,10 +332,10 @@ def phase_kernels(card):
                 g, p = g.float(), p.float()
                 d = (g - p).abs()
                 e = (d[inner] if nm == "dx" else d).max().item()
-                bound = tol * p.abs().max().item()
-                check(np.isfinite(e) and e <= bound,
+                bnd = tol * p.abs().max().item()
+                check(np.isfinite(e) and e <= bnd,
                       f"convbn_block backward N={n} C={c} F={f}: {nm} "
-                      f"max|err| {e} > {bound}")
+                      f"max|err| {e} > {bnd}")
                 errs.append(e)
             line = (f"phase 3: convbn_block backward N={n} C={c} F={f} "
                     f"relu={relu}: max|err| dx, dW, da, db "
@@ -261,9 +343,101 @@ def phase_kernels(card):
             if n == 512:
                 ms = cuda_ms(lambda: convbn_block_bwd(*bargs), 5)
                 plain_ms = cuda_ms(lambda: convbn_block_bwd_plain(*bargs), 5)
-                rows[("convbn_block_bwd", c, f)] = (max(errs), ms, plain_ms)
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+                u5, w5 = conv3d_operands(x, wm, a, b, relu, c, f, n)
+                g5 = gy.reshape(n // 64, 64, f, h, w).transpose(1, 2)
+                g5 = g5.contiguous()
+                lib_ms = cuda_ms(lambda: _conv_bwd(g5, u5, w5), 5)
+                bd = bound(nbytes(x, wm, a, b, y, gy, gs, *got),
+                           4.0 * n * h * w * 3 * f * 9 * c)
+                rows[("convbn_block_bwd", c, f)] = row(max(errs), ms,
+                                                       plain_ms, lib_ms, bd)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"cuDNN conv3d backward {lib_ms:.4f} ms, bound "
+                         f"{bd[0]:.4f} ms ({bd[1]}) [{card}]")
             print(line, flush=True)
+
+    # convbn2d at the train step's shapes (B=8): the encoder's stem and
+    # stage 0 at half resolution and stage 1 at quarter resolution, 16
+    # images a call; the decoder's refine tail at full resolution. The
+    # bounds of tests/test_convbn2d_pallas.py: y 3% of max|y|, stats rtol
+    # 3%; dx 3% of max away from the activation's kink, dW 3%, da, db 10%.
+    for tag, n, c, f, h2, w2, acts in (
+            ("half", 16, 32, 32, 128, 192, ("relu", "none")),
+            ("quarter", 16, 64, 64, 64, 96, ("relu", "none")),
+            ("tail 1", 8, 67, 67, 256, 384, ("none",)),
+            ("tail 2", 8, 67, 64, 256, 384, ("leaky",)),
+            ("tail 3", 8, 64, 64, 256, 384, ("leaky",))):
+        for act in acts:
+            bf = torch.bfloat16
+            x = torch.randn(n, c, h2, w2, generator=gen).to(dev, bf)
+            wt = (torch.randn(f, c, 3, 3, generator=gen)
+                  * (2.0 / (9 * f)) ** 0.5).to(dev, bf)
+            a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
+            b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+            y, st = convbn2d_block(x, wt, a, b, act)
+            torch.cuda.synchronize()
+            y_p, st_p = convbn2d_block_plain(x, wt, a, b, act)
+            err = (y.float() - y_p.float()).abs().max().item()
+            scale = y_p.float().abs().max().item() + 1e-6
+            check(np.isfinite(err) and err <= 0.03 * scale,
+                  f"convbn2d {tag} act={act}: y err {err} > 3% of {scale}")
+            check(bool(torch.allclose(st, st_p, rtol=3e-2,
+                                      atol=1e-2 * n * h2 * w2)),
+                  f"convbn2d {tag} act={act}: stats {st.tolist()[:2]} vs "
+                  f"{st_p.tolist()[:2]}")
+            gy = (torch.randn(y.shape, generator=gen) * 0.1).to(dev, bf)
+            gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
+            bargs = (x, wt, a, b, y_p, gy, gs, act)
+            got = convbn2d_block_bwd(*bargs)
+            torch.cuda.synchronize()
+            want = convbn2d_block_bwd_plain(*bargs)
+            v = x.float() * a[None, :, None, None] + b[None, :, None, None]
+            inner = (v.abs() > 0.02 if act != "none"
+                     else torch.ones_like(v, dtype=torch.bool))
+            errs = []
+            for g, p, nm, tol in zip(got, want, ("dx", "dW", "da", "db"),
+                                     (0.03, 0.03, 0.10, 0.10)):
+                g, p = g.float(), p.float()
+                d = (g - p).abs()
+                e = (d[inner] if nm == "dx" else d).max().item()
+                bnd = tol * p.abs().max().item()
+                check(np.isfinite(e) and e <= bnd,
+                      f"convbn2d backward {tag} act={act}: {nm} max|err| "
+                      f"{e} > {bnd}")
+                errs.append(e)
+            line = (f"phase 3: convbn2d {tag} N={n} C={c} F={f} {h2}x{w2} "
+                    f"act={act}: max|err| y {err:.4g} (max {scale:.4g}); "
+                    f"backward dx, dW, da, db "
+                    f"{', '.join(f'{e:.4g}' for e in errs)}")
+            if act == acts[0]:
+                flops = 2.0 * n * h2 * w2 * f * 9 * c
+                ms = cuda_ms(lambda: convbn2d_block(x, wt, a, b, act), 10)
+                plain_ms = cuda_ms(
+                    lambda: convbn2d_block_plain(x, wt, a, b, act), 5)
+                u = x.float() * a[None, :, None, None] \
+                    + b[None, :, None, None]
+                u = (u.relu() if act == "relu" else torch.where(
+                    u >= 0, u, 0.01 * u) if act == "leaky" else u).to(bf)
+                lib_ms = cuda_ms(lambda: F.conv2d(u, wt, padding=1), 10)
+                bd = bound(nbytes(x, wt, a, b, y, st), flops)
+                rows[("convbn2d", tag)] = row(err, ms, plain_ms, lib_ms, bd)
+                bms = cuda_ms(lambda: convbn2d_block_bwd(*bargs), 5)
+                bplain_ms = cuda_ms(lambda: convbn2d_block_bwd_plain(*bargs),
+                                    3)
+                blib_ms = cuda_ms(lambda: _conv_bwd(gy, u, wt), 5)
+                bbd = bound(nbytes(x, wt, a, b, y_p, gy, gs, *got),
+                            2.0 * flops)
+                rows[("convbn2d_bwd", tag)] = row(max(errs), bms, bplain_ms,
+                                                  blib_ms, bbd)
+                line += (f"; forward kernel {ms:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms, cuDNN conv2d {lib_ms:.4f} ms, "
+                         f"bound {bd[0]:.4f} ms ({bd[1]}); backward kernel "
+                         f"{bms:.4f} ms, plain {bplain_ms:.4f} ms, cuDNN "
+                         f"conv2d backward {blib_ms:.4f} ms, bound "
+                         f"{bbd[0]:.4f} ms ({bbd[1]}) [{card}]")
+            print(line, flush=True)
+            del x, y, y_p, got, want, v, inner
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -410,74 +584,113 @@ def _grad_groups(model):
             for g, pre in groups.items()}
 
 
+def _wrappers():
+    from depthestimation_tpu_torch.ops.convbn2d_kernel import convbn2d_block
+    from depthestimation_tpu_torch.ops.convcomb_kernel import convbn_block
+    from depthestimation_tpu_torch.ops.sweep_kernel import sweep_stage2
+    return sweep_stage2, convbn_block, convbn2d_block
+
+
+def launch_counts():
+    """(sweep fwd, bwd, convcomb fwd, bwd, convbn2d fwd, bwd) launches."""
+    return tuple(getattr(k, a) for k in _wrappers()
+                 for a in ("launches", "bwd_launches"))
+
+
+def reset_counts():
+    for k in _wrappers():
+        k.launches = k.bwd_launches = 0
+
+
+COUNT_NAMES = ("sweep_stage2", "sweep_stage2_bwd", "convbn_block",
+               "convbn_block_bwd", "convbn2d", "convbn2d_bwd")
+
+
+def rule4_step(cfg, cfg32, step, mi, gt, base, tag, want):
+    """One step from ``base``'s weights through the kernels, through their
+    plain versions and in f32; the kernel step must launch ``want`` and
+    stay within 3x the plain step's distance from the f32 step plus 0.4%
+    (tests/TOLERANCES.md rule 4) in the loss and each group's gradient.
+    Returns the distances."""
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import init_state
+    floor = 4e-3
+    grads, losses0 = {}, {}
+    for name, c, kernels in (("kernel", cfg, True), ("plain", cfg, False),
+                             ("f32", cfg32, False)):
+        model = get_model(c, "cuda")
+        model.load_state_dict(base.state_dict())
+        model.use_kernels = kernels
+        before = launch_counts()
+        state, loss, _ = step(init_state(model, c), mi, mi, gt, gt)
+        got = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(got == (want if kernels else (0,) * 6),
+              f"{tag} {name}: launches {got} != {want}")
+        losses0[name] = loss.item()
+        grads[name] = _grad_groups(model)
+        del model, state
+    check(all(np.isfinite(v) for v in losses0.values()),
+          f"{tag}: first-step losses {losses0}")
+    dists = {}
+    for name in ("kernel", "plain"):
+        d = {"loss": abs(losses0[name] - losses0["f32"])
+             / abs(losses0["f32"])}
+        d.update({g: _dist(grads[name][g], grads["f32"][g])
+                  for g in grads["f32"]})
+        dists[name] = d
+    for k in dists["kernel"]:
+        bnd = 3 * dists["plain"][k] + floor
+        check(dists["kernel"][k] <= bnd,
+              f"{tag} {k}: kernel-vs-f32 {dists['kernel'][k]:.4g} > 3 x "
+              f"plain-vs-f32 + floor = {bnd:.4g}")
+    return dists, losses0
+
+
 def phase_train(card):
     import copy
 
     import torch
     from depthestimation_tpu_torch.losses import get_loss
     from depthestimation_tpu_torch.models import get_model
-    from depthestimation_tpu_torch.ops.convcomb_kernel import convbn_block
-    from depthestimation_tpu_torch.ops.sweep_kernel import sweep_stage2
     from depthestimation_tpu_torch.parallel.train_step import (
         init_state, make_train_step)
 
     w, h = 384, 256
     dev = torch.device("cuda")
-    floor = 4e-3
+    want = (2, 2, 16, 16, 76, 76)
     launches = None
     for batch in (8, 1):
         cfg = cfg_for(64, 64, w, h, "bfloat16", nmode="exp7", batch=batch)
+        cfg_e = cfg_for(64, 64, w, h, "bfloat16", nmode="exp7", batch=batch,
+                        convbn2d=False)
         cfg32 = cfg_for(64, 64, w, h, "float32", nmode="exp7", batch=batch)
         step = make_train_step(get_loss(cfg))
         mi, gt = _train_batch(batch, w, h, dev)
         base = get_model(cfg, dev, seed=0)
+        check(base.train().encoder_path(h, w) == "convbn2d",
+              f"B={batch}: the train step's encoder is not the fused chain")
 
-        # the gradients of one step from the same weights, three ways
-        grads, losses0 = {}, {}
-        for name, c, kernels in (("kernel", cfg, True), ("plain", cfg, False),
-                                 ("f32", cfg32, False)):
-            model = get_model(c, dev)
-            model.load_state_dict(base.state_dict())
-            model.use_kernels = kernels
-            state, loss, _ = step(init_state(model, c), mi, mi, gt, gt)
-            losses0[name] = loss.item()
-            grads[name] = _grad_groups(model)
-            del model, state
-        check(all(np.isfinite(v) for v in losses0.values()),
-              f"B={batch}: first-step losses {losses0}")
-        dists = {}
-        for name in ("kernel", "plain"):
-            d = {"loss": abs(losses0[name] - losses0["f32"])
-                 / abs(losses0["f32"])}
-            d.update({g: _dist(grads[name][g], grads["f32"][g])
-                      for g in grads["f32"]})
-            dists[name] = d
-        for k in dists["kernel"]:
-            bound = 3 * dists["plain"][k] + floor
-            check(dists["kernel"][k] <= bound,
-                  f"B={batch} {k}: kernel-vs-f32 {dists['kernel'][k]:.4g} >"
-                  f" 3 x plain-vs-f32 + floor = {bound:.4g}")
-        del grads
+        # the gradients of one step from the same weights, three ways,
+        # the kernel and plain steps both in the fused route
+        dists, _ = rule4_step(cfg, cfg32, step, mi, gt, base, f"B={batch}",
+                              want)
 
         # 4 Adam steps through the kernels: the main path, counted
         model = copy.deepcopy(base)
         state = init_state(model, cfg)
-        sweep_stage2.launches = sweep_stage2.bwd_launches = 0
-        convbn_block.launches = convbn_block.bwd_launches = 0
+        reset_counts()
         losses = []
         for i in range(5):              # the 5th forward: after 4 updates
-            before = (sweep_stage2.launches, sweep_stage2.bwd_launches,
-                      convbn_block.launches, convbn_block.bwd_launches)
+            before = launch_counts()
             state, loss, aux = step(state, mi, mi, gt, gt)
             losses.append(loss.item())
-            got = tuple(a - b for a, b in zip(
-                (sweep_stage2.launches, sweep_stage2.bwd_launches,
-                 convbn_block.launches, convbn_block.bwd_launches), before))
-            check(got == (2, 2, 16, 16),
+            got = tuple(a - b for a, b in zip(launch_counts(), before))
+            check(got == want,
                   f"B={batch} step {i}: launches (sweep fwd, bwd, convcomb "
-                  f"fwd, bwd) {got} != (2, 2, 16, 16)")
+                  f"fwd, bwd, convbn2d fwd, bwd) {got} != {want}")
             check(np.isfinite(losses[-1]), f"B={batch} step {i}: loss "
                   f"{losses[-1]}")
+        counted = dict(zip(COUNT_NAMES, launch_counts()))
         check(losses[4] < losses[0],
               f"B={batch}: loss {losses[0]} -> {losses[4]} after 4 steps")
         check(tuple(aux["prev_output_left"].shape) == (batch, 64, h // 4,
@@ -485,33 +698,38 @@ def phase_train(card):
               f"B={batch}: prev_output feedback "
               f"{tuple(aux['prev_output_left'].shape)}")
         if batch == 8:
-            launches = {
-                "sweep_stage2": sweep_stage2.launches,
-                "sweep_stage2_bwd": sweep_stage2.bwd_launches,
-                "convbn_block": convbn_block.launches,
-                "convbn_block_bwd": convbn_block.bwd_launches}
+            launches = counted
 
-        # ms per step, in turns (plain, kernel, kernel, plain), and the
-        # peak memory of one step of each path
-        def run(kernels, n):
-            model.use_kernels = kernels
-            nonlocal state
-            for _ in range(n):
-                state, _, _ = step(state, mi, mi, gt, gt)
+        # ms per step in turns: the plain path, the kernel path (fused
+        # encoder) and the kernel path on the eager encoder
+        # (tpu.convbn2d: false), with the peak memory of a step of each
+        model_e = get_model(cfg_e, dev)
+        model_e.load_state_dict(base.state_dict())
+        runs = {"plain": (model, init_state(model, cfg), False),
+                "fused": (model, state, True),
+                "eager": (model_e, init_state(model_e, cfg_e), True)}
 
-        t = {"plain": [], "kernel": []}
+        def run(k):
+            m, st, kernels = runs[k]
+            m.use_kernels = kernels
+            st, _, _ = step(st, mi, mi, gt, gt)
+            runs[k] = (m, st, kernels)
+
+        t = {k: [] for k in runs}
         peak = {}
-        for k in ("plain", "kernel", "kernel", "plain"):
-            run(k == "kernel", 1)
+        for k in ("plain", "fused", "eager", "eager", "fused", "plain"):
+            run(k)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            t[k].append(cuda_ms(lambda: run(k == "kernel", 1), 3, warmup=0))
+            t[k].append(cuda_ms(lambda: run(k), 3, warmup=0))
             peak[k] = torch.cuda.max_memory_allocated() / 2**30
         ms = {k: sum(v) / len(v) for k, v in t.items()}
+        check(model_e.train().encoder_path(h, w) == "eager",
+              f"B={batch}: tpu.convbn2d false did not take the eager encoder")
 
         # one step through the kernels, split by CUDA events
         model.use_kernels = True
-        opt = state.optimizer
+        opt = runs["fused"][1].optimizer
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         loss_fn = get_loss(cfg)
         ev[0].record()
@@ -530,19 +748,54 @@ def phase_train(card):
         rule4 = "; ".join(f"{k} {dists['kernel'][k]:.4g}, "
                           f"{dists['plain'][k]:.4g}" for k in dists["kernel"])
         fps = {k: 1e3 * batch / v for k, v in ms.items()}
-        print(f"phase 6: train step exp7 {w}x{h} D=64 bf16 B={batch}: loss "
-              f"{trail} over 4 Adam steps; launches per step (sweep fwd, "
-              f"bwd, convcomb fwd, bwd) (2, 2, 16, 16); rel dist from the "
-              f"f32 step (kernel, plain): {rule4}; ms per step kernel "
-              f"{ms['kernel']:.3f} ({fps['kernel']:.2f} frames/s), plain "
-              f"{ms['plain']:.3f} ({fps['plain']:.2f}); kernel step split "
-              f"ms: forward x2 {split[0]:.3f}, loss {split[1]:.3f}, "
-              f"backward {split[2]:.3f}, Adam {split[3]:.3f}; peak memory "
-              f"GiB kernel {peak['kernel']:.3f}, plain {peak['plain']:.3f} "
-              f"[{card}]", flush=True)
-        del model, state, base, outs, loss, opt
+        print(f"phase 6: train step exp7 {w}x{h} D=64 bf16 B={batch} "
+              f"tpu.convbn2d auto: loss {trail} over 4 Adam steps; launches "
+              f"per step (sweep fwd, bwd, convcomb fwd, bwd, convbn2d fwd, "
+              f"bwd) {want}, over the 5 steps {counted}; rel dist from the "
+              f"f32 step (kernel, plain): {rule4}; ms per step: fused "
+              f"route {ms['fused']:.3f} ({fps['fused']:.2f} frames/s), "
+              f"eager encoder (tpu.convbn2d false) {ms['eager']:.3f} "
+              f"({fps['eager']:.2f}), plain path {ms['plain']:.3f} "
+              f"({fps['plain']:.2f}); fused step split ms: forward x2 "
+              f"{split[0]:.3f}, loss {split[1]:.3f}, backward "
+              f"{split[2]:.3f}, Adam {split[3]:.3f}; peak memory GiB fused "
+              f"{peak['fused']:.3f}, eager encoder {peak['eager']:.3f}, "
+              f"plain {peak['plain']:.3f} [{card}]", flush=True)
+        del model, model_e, runs, base, outs, loss, opt, state
         torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phase 7
+
+def phase_tail(card):
+    """The decoder's fused refine tail (tpu.convbn2d true) in one B=1
+    train step: 38 + 3 convbn2d launches per forward, two forwards."""
+    import torch
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import make_train_step
+
+    w, h = 384, 256
+    cfg = cfg_for(64, 64, w, h, "bfloat16", nmode="exp7", convbn2d=True)
+    cfg32 = cfg_for(64, 64, w, h, "float32", nmode="exp7", convbn2d=True)
+    mi, gt = _train_batch(1, w, h, torch.device("cuda"))
+    base = get_model(cfg, "cuda", seed=0)
+    check(base.base_decoder.use_fused(), "tpu.convbn2d true: no fused tail")
+    want = (2, 2, 16, 16, 82, 82)
+    reset_counts()
+    dists, losses0 = rule4_step(cfg, cfg32, make_train_step(get_loss(cfg)),
+                                mi, gt, base, "decoder tail B=1", want)
+    counted = dict(zip(COUNT_NAMES, launch_counts()))
+    rule4 = "; ".join(f"{k} {dists['kernel'][k]:.4g}, "
+                      f"{dists['plain'][k]:.4g}" for k in dists["kernel"])
+    print(f"phase 7: train step exp7 {w}x{h} D=64 bf16 B=1 tpu.convbn2d "
+          f"true (encoder chain + decoder tail): loss "
+          f"{losses0['kernel']:.5g} (f32 {losses0['f32']:.5g}); launches "
+          f"{counted}; rel dist from the f32 step (kernel, plain): {rule4} "
+          f"[{card}]", flush=True)
+    del base
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -572,6 +825,7 @@ def main() -> int:
         phase_server(card)
         phase_flagship(card)
         launches = phase_train(card)
+        phase_tail(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -586,11 +840,14 @@ def main() -> int:
             ("convbn_block", ("convbn_block", 32, 32), "convcomb.cu",
              "depthestimation_tpu/ops/convcomb_pallas.py:140"),
             ("convbn_block_bwd", ("convbn_block_bwd", 32, 32), "convcomb.cu",
-             "depthestimation_tpu/ops/convcomb_pallas.py:258")):
-        err, ms, plain_ms = rows[key]
+             "depthestimation_tpu/ops/convcomb_pallas.py:258"),
+            ("convbn2d", ("convbn2d", "quarter"), "convbn2d.cu",
+             "depthestimation_tpu/ops/convbn2d_pallas.py:201"),
+            ("convbn2d_bwd", ("convbn2d_bwd", "quarter"), "convbn2d.cu",
+             "depthestimation_tpu/ops/convbn2d_pallas.py:356")):
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        **rows[key]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

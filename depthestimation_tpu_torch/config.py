@@ -2,9 +2,10 @@
 
 Port of ``depthestimation_tpu/config.py`` (same schema, same defaults), so
 the port reads every file under ``configs/``. Of the ``tpu`` section the
-port honours ``tpu.dtype`` only. The TPU-only knobs ``remat``,
-``sweep_pallas``, ``convcomb_pallas``, ``convbn2d``, ``combine_pallas``
-and ``mesh`` are accepted and have no effect (see ``IGNORED_TPU_KEYS``).
+port honours ``tpu.dtype`` and ``tpu.convbn2d`` (the fused 2D ConvBN
+routes, ``models/base_model.py``). The TPU-only knobs ``remat``,
+``sweep_pallas``, ``convcomb_pallas``, ``combine_pallas`` and ``mesh`` are
+accepted and have no effect (see ``IGNORED_TPU_KEYS``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any
 
 #: ``tpu.*`` keys the port accepts and ignores: they select TPU kernels,
 #: remat granularities or meshes that do not exist on the CUDA path
-IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "convcomb_pallas", "convbn2d",
+IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "convcomb_pallas",
                     "combine_pallas", "mesh")
 
 

@@ -62,8 +62,15 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "reduce.cuh"
 
 using de::bf16;
+using de::dw_reduce_kernel;
+using de::ldmatrix_x4;
+using de::ldmatrix_x4_trans;
+using de::mma_16816;
+using de::smem_addr;
+using de::stats_reduce_kernel;
 
 namespace {
 
@@ -74,24 +81,6 @@ constexpr int kHaloW = kTW + 2;
 constexpr int kHalo = (kTH + 2) * kHaloW;  // 108 halo pixels
 constexpr int kNT = 4;                     // n8 pixel tiles per warp (max)
 constexpr int kMaxF = 32;                  // two 16-channel row tiles
-
-__device__ inline void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += A (16x16, row) . B (16x8, col), bf16 in, f32 accumulate
-__device__ inline void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                 unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // kBwd = false: the forward layer (x -> y, stats). kBwd = true: its data
 // gradient (see convcomb_bwd): x is then the folded cotangent ge [N, C, HW]
@@ -319,37 +308,6 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   }
 }
 
-// stats[f] = sum over blocks of partials[f, :, :]; one block per channel.
-__global__ void __launch_bounds__(256)
-stats_reduce_kernel(const float* __restrict__ partials,
-                    float* __restrict__ stats, int nblk) {
-  __shared__ float red[2][8];
-  const int f = blockIdx.x;
-  const float* pf = partials + (size_t)f * nblk * 2;
-  float s = 0.0f, s2 = 0.0f;
-  for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
-    s += pf[2 * i];
-    s2 += pf[2 * i + 1];
-  }
-  s = de::warp_sum(s);
-  s2 = de::warp_sum(s2);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = s2;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.0f, t2 = 0.0f;
-    for (int i = 0; i < (int)(blockDim.x / 32); ++i) {
-      t += red[0][i];
-      t2 += red[1][i];
-    }
-    stats[2 * f] = t;
-    stats[2 * f + 1] = t2;
-  }
-}
-
 // ge = bf16(gy + s0 + 2 * y * s1) with (s0, s1) = gstats[f]: the output
 // cotangent with the statistics' cotangent folded in
 // (convcomb_pallas.py:201-205).
@@ -364,18 +322,6 @@ ge_fold_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
                               2.0f * __bfloat162float(y[i]) * gstats[2 * f + 1]);
     ge[i] = __float2bfloat16(v);
   }
-}
-
-__device__ inline unsigned smem_addr(const bf16* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// ldmatrix .trans at the shared-memory address ``a``
-__device__ inline void ldmatrix_x4_trans(unsigned (&r)[4], unsigned a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 constexpr int kDwThreads = 512;
@@ -506,17 +452,6 @@ convcomb_dw_kernel(const bf16* __restrict__ ge, const bf16* __restrict__ x,
         out[(size_t)m * Np + n] = acc[q][j][e];
       }
   }
-}
-
-// dw[e] = sum over blocks of partials[block][e], blocks in order.
-__global__ void __launch_bounds__(256)
-dw_reduce_kernel(const float* __restrict__ partials, float* __restrict__ dw,
-                 int nblk, int elems) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= elems) return;
-  float v = 0.0f;
-  for (int i = 0; i < nblk; ++i) v += partials[(size_t)i * elems + e];
-  dw[e] = v;
 }
 
 }  // namespace

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from depthestimation_tpu_torch.models.layers import Conv3d, ConvBN3d
+from depthestimation_tpu_torch.models.layers import (Conv3d, ConvBN3d,
+                                                     materialize)
 
 
 class Base3D(nn.Module):
@@ -74,13 +75,6 @@ class Base3D(nn.Module):
                    torch.zeros(x.shape[1], dtype=f32, device=dev))
         ident_f = (torch.ones(fd, dtype=f32, device=dev),
                    torch.zeros(fd, dtype=f32, device=dev))
-
-        def materialize(z, a, b, relu):
-            """Apply a layer's pending normalize outside the kernel, in
-            bf16 (needed where a tensor is consumed twice)."""
-            y = (z * a.to(z.dtype)[None, :, None, None]
-                 + b.to(z.dtype)[None, :, None, None])
-            return torch.relu(y) if relu else y
 
         z, a, b = self._layer(0).fused(x, *ident_c, False, use_kernel)
         z, a, b = self._layer(1).fused(z, a, b, True, use_kernel)

@@ -11,10 +11,16 @@ draw comes from a ``torch.Generator`` the caller passes.
 Kernel dispatch is by configuration: a bf16 model runs plane-sweep stage 2
 and every Base3D layer on the Hopper kernels (``ops/sweep_kernel.py``,
 ``ops/convcomb_kernel.py``); an f32 model runs their plain versions, as
-the JAX package does on every backend. The JAX package's other gates
-(``jax.default_backend() == "tpu"``, ``B*D >= 192``, ``(h*w) % 128 == 0``)
-are TPU measurements and do not carry over: on CUDA a bf16 model runs
-both kernels at every batch and size.
+the JAX package does on every backend. ``convbn2d`` routes the encoder's
+stride-1 ConvBN stacks and the decoder's refine tail through the fused 2D
+layer (``ops/convbn2d_kernel.py``) as the JAX package does
+(``_resolved_convbn2d``): "auto" = the encoder's chain for a bf16 model in
+training; True = that, plus the decoder tail in both modes; "interpret" =
+both, in both modes, at any dtype; False = eager. The JAX package's other
+gates (``jax.default_backend() == "tpu"``, a single device, the strip
+width, ``B*D >= 192``, ``(h*w) % 128 == 0``) are TPU measurements and do
+not carry over: on CUDA a bf16 model runs the kernels at every batch and
+size. ``use_kernels = False`` runs the same routes on the plain versions.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class BaseModelNet(nn.Module):
     def __init__(self, feature_dim: int = 64, d: int = 64,
                  nmode: str = "exp7", bn_avg: bool = False,
                  sigma_soft_max: float = 10.0, n_views: int = 2,
-                 use_lc_prob: float = 0.7, dtype=None):
+                 use_lc_prob: float = 0.7, dtype=None, convbn2d="auto"):
         super().__init__()
         if nmode not in NMODES:
             raise NotImplementedError(
@@ -48,13 +54,17 @@ class BaseModelNet(nn.Module):
         self.feature_dim, self.d, self.nmode = feature_dim, d, nmode
         self.sigma_soft_max = sigma_soft_max
         self.use_lc_prob = use_lc_prob
-        self.dtype = dtype
+        self.dtype, self.convbn2d = dtype, convbn2d
         #: False holds the bf16 path to the kernels' plain versions
         self.use_kernels = True
         mul = feature_dim / 64.0
-        self.base_encoder = BaseEncoder(feature_dim, bn_avg, dtype)
-        self.base_decoder = BaseDecoder(d, feature_dim, int(32 * mul), 3,
-                                        dtype)
+        self.base_encoder = BaseEncoder(feature_dim, bn_avg, dtype,
+                                        self._resolved_convbn2d())
+        # the decoder tail only when forced (JAX measured it slower on the
+        # TPU and left it out of "auto")
+        self.base_decoder = BaseDecoder(
+            d, feature_dim, int(32 * mul), 3, dtype,
+            convbn2d if convbn2d in (True, "interpret") else False)
         self.conv0 = Conv(d, d, 3, 1, 1, dtype=dtype)
         self.conv0_1 = Conv(d, d, 3, 1, 1, dtype=dtype)
         self.conv0_2 = Conv(d, d, 3, 1, 1, dtype=dtype)
@@ -62,10 +72,21 @@ class BaseModelNet(nn.Module):
         self.based_3d = Base3D(in_ch, d, feature_dim=32, dres_count=2,
                                bn_avg=bn_avg, dtype=dtype)
 
+    def _resolved_convbn2d(self):
+        if self.convbn2d != "auto":
+            return self.convbn2d
+        return self.dtype == torch.bfloat16
+
+    def encoder_path(self, h: int, w: int) -> str:
+        """Which encoder route a forward at image h x w takes in the
+        module's current mode: "convbn2d" (the fused chain) or "eager"."""
+        return ("convbn2d" if self.base_encoder.use_fused(h, w)
+                else "eager")
+
     def _encode(self, rgb):
         b, t = rgb.shape[:2]
         x = rgb.reshape((b * t,) + rgb.shape[2:])
-        feat1, feat_raw, feat = self.base_encoder(x)
+        feat1, feat_raw, feat = self.base_encoder(x, self.use_kernels)
         img_feat = avg_pool(x, x.shape[-2] // feat.shape[-2])
         feat_all = torch.cat([feat.float(), img_feat.float()], dim=1)
 
@@ -130,6 +151,7 @@ class BaseModelNet(nn.Module):
         vol = torch.cat(planes, dim=1)                   # [B, C, D, h, w]
         resi = self.based_3d(vol, self.use_kernels)
         bv_upd = torch.log_softmax(bv + resi, dim=1)
-        refined = self.base_decoder(torch.exp(bv_upd), feats_dec)
+        refined = self.base_decoder(torch.exp(bv_upd), feats_dec,
+                                    self.use_kernels)
         return {"output": [bv, bv_upd], "output_refined": [refined],
                 "flow": None, "flow_refined": None}

@@ -10,26 +10,30 @@ from depthestimation_tpu_torch.models.layers import init_weights
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def get_model(cfg, device="cpu", seed: int | None = None) -> BaseModelNet:
-    """Build ``cfg.data.model_name`` on ``device`` in eval mode
+def get_model(cfg, device="cuda", seed: int | None = None) -> BaseModelNet:
+    """Build ``cfg.data.model_name`` on ``device`` (the card unless the
+    caller names the CPU; without a card the default raises) in eval mode
     (``.train()`` switches to the train-mode forward).
 
-    The compute dtype is ``tpu.dtype``; the other ``tpu`` keys are
-    TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With ``seed`` the
-    weights are drawn from a ``torch.Generator`` seeded with it; without,
-    they are left for ``load_state_dict``.
+    The compute dtype is ``tpu.dtype``; ``tpu.convbn2d`` (default "auto")
+    routes the fused 2D ConvBN layers (``BaseModelNet``); the other ``tpu``
+    keys are TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With
+    ``seed`` the weights are drawn from a ``torch.Generator`` seeded with
+    it; without, they are left for ``load_state_dict``.
     """
     name = cfg.data.model_name
     if name != "base":
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, queue 1)")
-    dtype = _DTYPES[cfg.get("tpu", {}).get("dtype", "float32")]
+    tpu = cfg.get("tpu", {})
+    dtype = _DTYPES[tpu.get("dtype", "float32")]
     model = BaseModelNet(
         feature_dim=cfg.var.feature_dim, d=cfg.var.ndepth,
         nmode=cfg.var.nmode, bn_avg=cfg.var.bn_avg,
         sigma_soft_max=cfg.var.sigma_soft_max,
         n_views=int(cfg.var.get("t_win", 1)) + 1,
-        use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype)
+        use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype,
+        convbn2d=tpu.get("convbn2d", "auto"))
     if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
         raise NotImplementedError("the gather sweep is not ported yet "
                                   "(ROADMAP.md, queue 1)")

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from depthestimation_tpu_torch.ops.convbn2d_kernel import (
+    convbn2d_block, convbn2d_block_plain)
 from depthestimation_tpu_torch.ops.convcomb_kernel import (
     convbn_block, convbn_block_plain, depth_combine, pack_wm)
 
@@ -28,7 +30,11 @@ def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
 
 class Conv(nn.Module):
     """2D conv, torch geometry, explicit symmetric padding. The weight
-    lives in the child ``Conv_0`` (flax's ``nn.Conv`` inside ``Conv``)."""
+    lives in the child ``Conv_0`` (flax's ``nn.Conv`` inside ``Conv``).
+
+    ``fused(...)`` runs a 3x3 stride-1 'same' conv through the fused 2D
+    layer (``ops/convbn2d_kernel.py``) on the RAW previous output with the
+    pending normalize applied on load (``Conv._fused``)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -40,9 +46,35 @@ class Conv(nn.Module):
 
     def forward(self, x):
         c = self.Conv_0
-        bias = None if c.bias is None else _cast(c.bias, self.dtype)
-        return F.conv2d(_cast(x, self.dtype), _cast(c.weight, self.dtype),
-                        bias, c.stride, c.padding, c.dilation)
+        # dtype None: flax's promotion of input and parameters (a bf16
+        # input from the fused chain meets f32 weights in an f32 model)
+        dt = self.dtype or torch.promote_types(x.dtype, c.weight.dtype)
+        bias = None if c.bias is None else c.bias.to(dt)
+        return F.conv2d(x.to(dt), c.weight.to(dt), bias, c.stride,
+                        c.padding, c.dilation)
+
+    def fused(self, x, a, b, act: str, use_kernel: bool = True):
+        """x [N, C, H, W] raw input; a, b [C] f32 pending normalize (None:
+        ones, zeros) and ``act`` in {"none", "relu", "leaky"} (None: "none")
+        after it. Returns (y_raw [N, F, H, W] bf16, stats [F, 2] f32, bias).
+        A biased conv's own bias is NOT applied to y: the caller chains it
+        as the next fused layer's ``b`` or adds it after the last one."""
+        c = self.Conv_0
+        if (c.kernel_size != (3, 3) or c.stride != (1, 1)
+                or c.padding != (1, 1) or c.dilation != (1, 1)):
+            raise ValueError("fused Conv needs the 3x3 stride-1 'same' "
+                             "no-dilation geometry")
+        ch = x.shape[1]
+        f32 = torch.float32
+        a = (torch.ones(ch, dtype=f32, device=x.device) if a is None
+             else a.to(f32))
+        b = (torch.zeros(ch, dtype=f32, device=x.device) if b is None
+             else b.to(f32))
+        fn = convbn2d_block if use_kernel else convbn2d_block_plain
+        y, stats = fn(x.to(torch.bfloat16).contiguous(),
+                      c.weight.to(torch.bfloat16).contiguous(),
+                      a.contiguous(), b.contiguous(), act or "none")
+        return y, stats, c.bias
 
 
 class ConvTranspose(nn.Module):
@@ -155,7 +187,10 @@ class BatchNorm(nn.Module):
         applies on load (``BatchNorm._fused_coeffs``). Gradients reach the
         scale, the bias and the sums through these [C]-sized ops."""
         mean = stats[:, 0] / count
-        var = torch.clamp(stats[:, 1] / count - mean * mean, min=0.0)
+        var = stats[:, 1] / count - mean * mean
+        # max(var, 0) with the gradient split at var == 0, as jnp.maximum
+        # (torch.clamp passes all of it)
+        var = torch.maximum(var, torch.zeros_like(var))
         return self.coeffs(mean, var, count)
 
     def forward(self, x):
@@ -175,7 +210,12 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """convbn: conv (no bias) + BN; padding = dilation if dilation > 1."""
+    """convbn: conv (no bias) + BN; padding = dilation if dilation > 1.
+
+    ``fused(...)`` is the fused 2D chain's contract (``ConvBN`` with
+    ``fused_in``): the conv through ``Conv.fused`` on the RAW previous
+    output, and the BN turned into the (a, b) that the NEXT fused layer
+    applies on load."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int, pad: int, dilation: int = 1,
@@ -188,6 +228,14 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         return self.BatchNorm_0(self.Conv_0(x))
+
+    def fused(self, x, a, b, act: str, use_kernel: bool = True):
+        """Returns (y_raw, a', b') where (a', b') normalize y_raw on the
+        NEXT layer's load (count = N H W)."""
+        y, stats, _ = self.Conv_0.fused(x, a, b, act, use_kernel)
+        count = float(y.shape[0] * y.shape[2] * y.shape[3])
+        a2, b2 = self.BatchNorm_0.fused_coeffs(stats, count)
+        return y, a2, b2
 
 
 class Conv3d(nn.Module):
@@ -241,6 +289,16 @@ class ConvBN3d(nn.Module):
         count = float(y.shape[0] * y.shape[2] * y.shape[3])
         a2, b2 = self.BatchNorm_0.fused_coeffs(stats, count)
         return y, a2, b2
+
+
+def materialize(z, a, b, relu: bool):
+    """Apply a pending per-channel normalize (+ReLU) outside the fused
+    kernels, in z's dtype, where a fused layer's output is consumed twice
+    (a residual add) or leaves the chain. ``a is None``: no normalize."""
+    if a is not None:
+        shape = (1, -1) + (1,) * (z.dim() - 2)
+        z = z * a.to(z.dtype).reshape(shape) + b.to(z.dtype).reshape(shape)
+    return torch.relu(z) if relu else z
 
 
 def leaky_relu(x, slope: float = 0.01):

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "convcomb_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "convcomb_bwd": [_VP] * 13 + [_I] * 12 + [_VP],
+    "convbn2d_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
+    "convbn2d_bwd": [_VP] * 12 + [_I] * 10 + [_VP],
 }
 
 

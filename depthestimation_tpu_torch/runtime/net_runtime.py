@@ -46,11 +46,13 @@ class NetRuntime:
       mode: one of ``MODES``.
       state_dict: model weights; None draws them from ``seed``.
       seed: seed of the ``torch.Generator`` for the init.
-      device: where the model and every per-frame tensor live.
+      device: where the model and every per-frame tensor live: the card
+        unless the caller names the CPU (without a card the default
+        raises).
     """
 
     def __init__(self, cfg, sensor_json, mode: str = "mono",
-                 state_dict=None, seed: int = 0, device="cpu"):
+                 state_dict=None, seed: int = 0, device="cuda"):
         spec = MODES[mode]
         self.mode = mode
         self.stereo = spec["stereo"]

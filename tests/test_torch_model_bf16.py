@@ -99,7 +99,7 @@ def spies(monkeypatch):
 def test_kernel_dispatch_by_dtype(spies, dtype, want):
     mi, _ = tsyn.make_batch(batch=1, t_win=1, h=H, w=W, d_min=3.0,
                             d_max=30.0, ndepth=D)
-    model = get_model(_cfg(dtype), seed=0)
+    model = get_model(_cfg(dtype), "cpu", seed=0)
     with torch.inference_mode():
         out = model(tsyn.to_device(mi, "cpu"))
     assert (spies["sweep"], spies["convcomb"]) == want
@@ -110,14 +110,14 @@ def test_get_model_seeded_and_tpu_knobs_ignored():
     """The same seed gives the same weights; the TPU-only knobs are
     accepted and change nothing."""
     knobs = {k: True for k in tcfg.IGNORED_TPU_KEYS}
-    a = get_model(_cfg("bfloat16"), seed=5).state_dict()
-    b = get_model(_cfg("bfloat16", **knobs), seed=5).state_dict()
-    c = get_model(_cfg("bfloat16"), seed=6).state_dict()
+    a = get_model(_cfg("bfloat16"), "cpu", seed=5).state_dict()
+    b = get_model(_cfg("bfloat16", **knobs), "cpu", seed=5).state_dict()
+    c = get_model(_cfg("bfloat16"), "cpu", seed=6).state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)
-    assert get_model(_cfg("bfloat16")).dtype == torch.bfloat16
-    assert get_model(_cfg("float32")).dtype is None
+    assert get_model(_cfg("bfloat16"), "cpu").dtype == torch.bfloat16
+    assert get_model(_cfg("float32"), "cpu").dtype is None
 
 
 def test_config_loads_repo_configs():

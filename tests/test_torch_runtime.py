@@ -65,7 +65,7 @@ def runtimes():
     jrt = JRuntime(jcfg(_cfg_dict()), _sensor_json(), mode="mono_lc",
                    variables=v)
     trt = NetRuntime(tcfg(_cfg_dict()), _sensor_json(), mode="mono_lc",
-                     state_dict=from_jax_params(v))
+                     state_dict=from_jax_params(v), device="cpu")
     return jrt, trt
 
 
@@ -102,7 +102,8 @@ def test_runtime_three_frames_match_jax(runtimes):
 
 
 def test_runtime_seeded_init():
-    rt = NetRuntime(tcfg(_cfg_dict()), _sensor_json(), mode="mono", seed=3)
+    rt = NetRuntime(tcfg(_cfg_dict()), _sensor_json(), mode="mono", seed=3,
+                    device="cpu")
     out = rt.process_frame(np.random.default_rng(1).random(
         (3, H, W), dtype=np.float32))
     assert out["dpv_refined"].shape == (D, H, W)

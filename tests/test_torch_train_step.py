@@ -113,10 +113,12 @@ def port_grads(tree) -> dict:
                                                              tree)})
 
 
-def port_step(batch, variables, dtype, steps=1):
-    """(losses, step-0 gradients, last aux, state) of the port's step."""
+def port_step(batch, variables, dtype, steps=1, convbn2d=False):
+    """(losses, step-0 gradients, last aux, state) of the port's step;
+    ``convbn2d`` routes the fused 2D ConvBN layers (eager by default, as
+    the JAX steps these tests compare with)."""
     _, tc = cfgs()
-    model = BaseModelNet(FD, D, "exp7_lc", dtype=dtype)
+    model = BaseModelNet(FD, D, "exp7_lc", dtype=dtype, convbn2d=convbn2d)
     load_jax_params(model, variables)
     state = ts.init_state(model, tc)
     step = ts.make_train_step(get_loss(tc))

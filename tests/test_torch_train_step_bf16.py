@@ -4,7 +4,9 @@ tests/TOLERANCES.md rule 4.
 The port's bf16 step (its kernel wrappers on CPU tensors, so the plain
 versions with the kernels' rounding points) and the JAX bf16 step (both
 Pallas kernels in interpret mode, the eager encoder: ``convbn2d=False``)
-start from the same weights on the same batch. Each is measured against
+start from the same weights on the same batch, both on the eager encoder
+and decoder (``convbn2d`` False; the fused route is held in
+tests/test_torch_train_step_fused.py). Each is measured against
 the f32 oracle, the port's f32 step (which tests/test_torch_train_step.py
 holds to JAX's): the loss (relative difference) and the gradient of each
 of the encoder, BV head, Base3D and decoder (rel-L2). The port's distance
@@ -42,7 +44,8 @@ def test_bf16_step_rule4_against_jax_bf16():
     grads_j = port_grads(gbf)
     (l32,), oracle, _, _ = port_step(batch, variables, None)
 
-    losses, grads, _, _ = port_step(batch, variables, torch.bfloat16)
+    losses, grads, _, _ = port_step(batch, variables, torch.bfloat16,
+                                    convbn2d=False)
     assert np.isfinite(losses[0])
     assert all(torch.isfinite(g).all() for g in grads.values())
     floor = 4e-3
