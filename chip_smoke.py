@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU: the serving
-path and the bf16 train step.
+path, the bf16 train step, and the train step with the light-curtain loop
+inside.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -37,7 +38,17 @@ Phases, one line each (a failed phase exits non-zero before the result):
    peak memory;
 7. the decoder's fused tail (``tpu.convbn2d: true``): one B=1 train step
    through the kernels with 38 + 3 convbn2d launches per forward, a finite
-   loss, and rule-4 gradients against an f32 plain step.
+   loss, and rule-4 gradients against an f32 plain step;
+8. the LC-on train step of ``bench_train.py --lc`` (exp7_lc, 384x256, D 64,
+   bf16, B=8, ``trainer.default.fused_lc_fn`` at the production setting:
+   5 iterations, the default planner, 64 -> 128 range bins): 4 Adam steps
+   with ``prev_output`` and ``prev_lc`` fed back from ``aux``, (a) on the
+   flat Base3D route (``tpu.convcomb_pallas: false, tpu.combine_pallas:
+   true``: per step 2 sweep, 76 convbn2d and 16 tap_combine launches forward
+   and backward, no convcomb launch; rule-4 gradients; one B=1 step for
+   its counts) and (b) on the default route; for each the LC-on and LC-off
+   step ms in turns, the step's split (forward, loss, backward, Adam,
+   lc_process and the planner's DP inside it) and peak memory.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -113,9 +124,11 @@ def row(err, ms, plain_ms, library_ms, bound_):
 
 
 def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1,
-            convbn2d="auto"):
+            convbn2d="auto", **tpu):
     """``__graft_entry__._cfg`` (the config of bench.py and
-    bench_train.py) with ``tpu.dtype`` and ``tpu.convbn2d``."""
+    bench_train.py) with ``tpu.dtype``, ``tpu.convbn2d`` and any further
+    ``tpu`` key; the ``lc`` section keeps its defaults (5 iterations, the
+    default planner, step [0.5], spread 2 x 5)."""
     from depthestimation_tpu_torch.config import config_from_dict
     return config_from_dict({
         "data": {"exp_name": "chip_smoke", "model_name": "base",
@@ -131,7 +144,7 @@ def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1,
         "train": {"batch_size": batch, "lr": 1e-5, "epoch_num": 1,
                   "n_gpu": 1, "optim": "adam", "beta": 0.999,
                   "momentum": 0.9, "weight_decay": 1e-6, "bias_decay": 0.0},
-        "tpu": {"dtype": dtype, "convbn2d": convbn2d},
+        "tpu": dict(dtype=dtype, convbn2d=convbn2d, **tpu),
     })
 
 
@@ -186,6 +199,9 @@ def _conv_bwd(g, u, w):
 def phase_kernels(card):
     import torch
     import torch.nn.functional as F
+    from depthestimation_tpu_torch.ops.combine_kernel import (
+        tap_combine, tap_combine_bwd, tap_combine_bwd_plain,
+        tap_combine_plain)
     from depthestimation_tpu_torch.ops.convbn2d_kernel import (
         convbn2d_block, convbn2d_block_bwd, convbn2d_block_bwd_plain,
         convbn2d_block_plain)
@@ -438,6 +454,44 @@ def phase_kernels(card):
             print(line, flush=True)
             del x, y, y_p, got, want, v, inner
         torch.cuda.empty_cache()
+
+    # tap_combine at the flat Base3D route's shapes: no multiply and a
+    # fixed order of f32 sums, so kernel and plain version must be EQUAL;
+    # the bound is the bytes of t and y alone
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (512, 64):
+            for f in (32, 1):
+                t = torch.randn(n, 3 * f, 64, 96, generator=gen).to(dev,
+                                                                    dtype)
+                g = torch.randn(n, f, 64, 96, generator=gen).to(dev, dtype)
+                y, dt = tap_combine(t, 64), tap_combine_bwd(g, 64)
+                torch.cuda.synchronize()
+                errs = ((y.float() - tap_combine_plain(t, 64).float())
+                        .abs().max().item(),
+                        (dt.float() - tap_combine_bwd_plain(g, 64).float())
+                        .abs().max().item())
+                check(errs == (0.0, 0.0),
+                      f"tap_combine N={n} F={f} {dtype}: max|err| forward, "
+                      f"backward {errs} != 0")
+                ms = cuda_ms(lambda: tap_combine(t, 64), 10)
+                plain_ms = cuda_ms(lambda: tap_combine_plain(t, 64), 5)
+                bms = cuda_ms(lambda: tap_combine_bwd(g, 64), 10)
+                bplain_ms = cuda_ms(lambda: tap_combine_bwd_plain(g, 64), 5)
+                bd, bbd = bound(nbytes(t, y), 0.0), bound(nbytes(g, dt), 0.0)
+                if dtype == torch.bfloat16 and n == 512:
+                    rows[("tap_combine", f)] = row(errs[0], ms, plain_ms,
+                                                   None, bd)
+                    rows[("tap_combine_bwd", f)] = row(errs[1], bms,
+                                                       bplain_ms, None, bbd)
+                print(f"phase 3: tap_combine N={n} F={f} 64x96 "
+                      f"{str(dtype)[6:]}: max|err| forward, backward "
+                      f"{errs[0]:.4g}, {errs[1]:.4g}; forward kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bd[0]:.4f} ms ({bd[1]}); backward kernel {bms:.4f} "
+                      f"ms, plain {bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms "
+                      f"({bbd[1]}) [{card}]", flush=True)
+                del t, g, y, dt
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -585,14 +639,16 @@ def _grad_groups(model):
 
 
 def _wrappers():
+    from depthestimation_tpu_torch.ops.combine_kernel import tap_combine
     from depthestimation_tpu_torch.ops.convbn2d_kernel import convbn2d_block
     from depthestimation_tpu_torch.ops.convcomb_kernel import convbn_block
     from depthestimation_tpu_torch.ops.sweep_kernel import sweep_stage2
-    return sweep_stage2, convbn_block, convbn2d_block
+    return sweep_stage2, convbn_block, convbn2d_block, tap_combine
 
 
 def launch_counts():
-    """(sweep fwd, bwd, convcomb fwd, bwd, convbn2d fwd, bwd) launches."""
+    """(sweep fwd, bwd, convcomb fwd, bwd, convbn2d fwd, bwd, tap_combine
+    fwd, bwd) launches."""
     return tuple(getattr(k, a) for k in _wrappers()
                  for a in ("launches", "bwd_launches"))
 
@@ -603,7 +659,8 @@ def reset_counts():
 
 
 COUNT_NAMES = ("sweep_stage2", "sweep_stage2_bwd", "convbn_block",
-               "convbn_block_bwd", "convbn2d", "convbn2d_bwd")
+               "convbn_block_bwd", "convbn2d", "convbn2d_bwd", "tap_combine",
+               "tap_combine_bwd")
 
 
 def rule4_step(cfg, cfg32, step, mi, gt, base, tag, want):
@@ -624,7 +681,7 @@ def rule4_step(cfg, cfg32, step, mi, gt, base, tag, want):
         before = launch_counts()
         state, loss, _ = step(init_state(model, c), mi, mi, gt, gt)
         got = tuple(a - b for a, b in zip(launch_counts(), before))
-        check(got == (want if kernels else (0,) * 6),
+        check(got == (want if kernels else (0,) * len(want)),
               f"{tag} {name}: launches {got} != {want}")
         losses0[name] = loss.item()
         grads[name] = _grad_groups(model)
@@ -657,7 +714,7 @@ def phase_train(card):
 
     w, h = 384, 256
     dev = torch.device("cuda")
-    want = (2, 2, 16, 16, 76, 76)
+    want = (2, 2, 16, 16, 76, 76, 0, 0)
     launches = None
     for batch in (8, 1):
         cfg = cfg_for(64, 64, w, h, "bfloat16", nmode="exp7", batch=batch)
@@ -687,7 +744,8 @@ def phase_train(card):
             got = tuple(a - b for a, b in zip(launch_counts(), before))
             check(got == want,
                   f"B={batch} step {i}: launches (sweep fwd, bwd, convcomb "
-                  f"fwd, bwd, convbn2d fwd, bwd) {got} != {want}")
+                  f"fwd, bwd, convbn2d fwd, bwd, tap_combine fwd, bwd) "
+                  f"{got} != {want}")
             check(np.isfinite(losses[-1]), f"B={batch} step {i}: loss "
                   f"{losses[-1]}")
         counted = dict(zip(COUNT_NAMES, launch_counts()))
@@ -751,7 +809,8 @@ def phase_train(card):
         print(f"phase 6: train step exp7 {w}x{h} D=64 bf16 B={batch} "
               f"tpu.convbn2d auto: loss {trail} over 4 Adam steps; launches "
               f"per step (sweep fwd, bwd, convcomb fwd, bwd, convbn2d fwd, "
-              f"bwd) {want}, over the 5 steps {counted}; rel dist from the "
+              f"bwd, tap_combine fwd, bwd) {want}, over the 5 steps "
+              f"{counted}; rel dist from the "
               f"f32 step (kernel, plain): {rule4}; ms per step: fused "
               f"route {ms['fused']:.3f} ({fps['fused']:.2f} frames/s), "
               f"eager encoder (tpu.convbn2d false) {ms['eager']:.3f} "
@@ -782,7 +841,7 @@ def phase_tail(card):
     mi, gt = _train_batch(1, w, h, torch.device("cuda"))
     base = get_model(cfg, "cuda", seed=0)
     check(base.base_decoder.use_fused(), "tpu.convbn2d true: no fused tail")
-    want = (2, 2, 16, 16, 82, 82)
+    want = (2, 2, 16, 16, 82, 82, 0, 0)
     reset_counts()
     dists, losses0 = rule4_step(cfg, cfg32, make_train_step(get_loss(cfg)),
                                 mi, gt, base, "decoder tail B=1", want)
@@ -796,6 +855,197 @@ def phase_tail(card):
           f"[{card}]", flush=True)
     del base
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 8
+
+def _lc_route(card, tag, keys, want, rule4: bool):
+    """The LC-on train step at B=8 on one Base3D route (``keys``: its
+    ``tpu`` settings): 4 Adam steps with the ``prev_output`` / ``prev_lc``
+    feedback, counted; LC-on and LC-off ms in turns; the step's split.
+    Returns the launches counted over the main path's run."""
+    import copy
+
+    import torch
+    from depthestimation_tpu_torch.lc.curtain import LightCurtain
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.ops.ufield import UFieldParams
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+    from depthestimation_tpu_torch.trainer.default import fused_lc_fn
+
+    w, h, batch = 384, 256, 8
+    dev = torch.device("cuda")
+    cfg = cfg_for(64, 64, w, h, "bfloat16", batch=batch, **keys)
+    cfg32 = cfg_for(64, 64, w, h, "float32", batch=batch, **keys)
+    mi, gt = _train_batch(batch, w, h, dev)
+    base = get_model(cfg, dev, seed=0)
+    path = base.conv3d_path(batch, 64, h // 4, w // 4)
+    check(path == tag, f"{keys}: Base3D route {path!r}, not {tag!r}")
+    check(base.train().encoder_path(h, w) == "convbn2d",
+          f"{tag}: the train step's encoder is not the fused chain")
+
+    lc = LightCurtain(dev)
+    lc.init(lc.expand_params(lc.gen_params_from_model_input(mi), cfg, 64,
+                             128))
+    check(not lc.transform_needed and lc.planner_large.C == w,
+          f"{tag}: the synthetic curtain is not the 384-ray co-located one")
+    lc_fn = fused_lc_fn(cfg, lc, UFieldParams.for_dataset("kitti"))
+    loss_fn = get_loss(cfg)
+    step_on = make_train_step(loss_fn, lc_fn=lc_fn)
+    step_off = make_train_step(loss_fn)
+
+    rule4_txt = "not run on this route"
+    if rule4:
+        dists, _ = rule4_step(cfg, cfg32, step_off, mi, gt, base,
+                              f"LC {tag} B={batch}", want)
+        rule4_txt = "; ".join(f"{k} {dists['kernel'][k]:.4g}, "
+                              f"{dists['plain'][k]:.4g}"
+                              for k in dists["kernel"])
+
+    def fed(aux, side):
+        """The next step's input: the feedback of ``aux`` for ``side``."""
+        if aux is None:
+            return mi
+        return dict(mi, prev_output=aux[f"prev_output_{side}"],
+                    prev_lc=aux[f"prev_lc_{side}"])
+
+    # 4 Adam steps with the feedback: the main path, counted
+    model = copy.deepcopy(base)
+    state = init_state(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log_uniform = float(np.log(1.0 / 64))
+    reset_counts()
+    losses, aux = [], None
+    for i in range(5):                  # the 5th forward: after 4 updates
+        before = launch_counts()
+        state, loss, aux = step_on(state, fed(aux, "left"),
+                                   fed(aux, "right"), gt, gt, gen)
+        losses.append(loss.item())
+        got = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(got == want, f"LC {tag} step {i}: launches {got} != {want}")
+        check(np.isfinite(losses[-1]), f"LC {tag} step {i}: loss {loss}")
+        for side in ("left", "right"):
+            pl = aux[f"prev_lc_{side}"]
+            check(tuple(pl.shape) == (batch, 64, h // 4, w // 4)
+                  and bool(torch.isfinite(pl).all()),
+                  f"LC {tag} step {i}: prev_lc_{side} {tuple(pl.shape)}")
+            psum = torch.exp(pl).sum(1)
+            check(bool(torch.allclose(psum, torch.ones_like(psum),
+                                      atol=1e-3)),
+                  f"LC {tag} step {i}: prev_lc_{side} does not normalize")
+            check((pl - log_uniform).abs().max().item() > 0.5,
+                  f"LC {tag} step {i}: prev_lc_{side} is the log-uniform "
+                  f"prior: the curtains sensed nothing")
+    counted = dict(zip(COUNT_NAMES, launch_counts()))
+    # the feedback changes the inputs from step to step, so the losses are
+    # not one descent; with lr 1e-5 they stay near the first
+    check(max(losses) <= 1.25 * losses[0],
+          f"LC {tag}: loss {losses} left the first by more than a quarter")
+
+    # ms per step in turns: LC on, off, off, on (inputs: the last feedback)
+    mi_l, mi_r = fed(aux, "left"), fed(aux, "right")
+    runs = {"on": (step_on, state), "off": (step_off, state)}
+
+    def run(k):
+        runs[k][0](runs[k][1], mi_l, mi_r, gt, gt, gen)
+
+    t = {"on": [], "off": []}
+    peak = {}
+    for k in ("on", "off", "off", "on"):
+        run(k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t[k].append(cuda_ms(lambda: run(k), 2, warmup=0))
+        peak[k] = torch.cuda.max_memory_allocated() / 2**30
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+
+    # one LC-on step split by CUDA events; the planner's DP inside
+    # lc_process from events around each of its solves
+    dp_events = []
+    solve = lc.planner_large.get_design_points
+
+    def timed_solve(field):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = solve(field)
+        ev[1].record()
+        dp_events.append(ev)
+        return out
+
+    lc.planner_large.get_design_points = timed_solve
+    opt = state.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    opt.zero_grad(set_to_none=True)
+    outs = [model(mi_l, generator=gen), model(mi_r, generator=gen)]
+    ev[1].record()
+    loss = loss_fn(outs, [gt, gt])
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    opt.step()
+    ev[4].record()
+    refined = [o["output_refined"][-1].detach() for o in outs]
+    lc_fn(refined[0], refined[1], mi_l, mi_r, gen)
+    ev[5].record()
+    torch.cuda.synchronize()
+    lc.planner_large.get_design_points = solve
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+    dp_ms = sum(a.elapsed_time(b) for a, b in dp_events)
+    check(len(dp_events) == 5, f"LC {tag}: {len(dp_events)} planner solves")
+
+    trail = " -> ".join(f"{x:.5g}" for x in losses)
+    print(f"phase 8: LC-on train step exp7_lc {w}x{h} D=64 bf16 B={batch} "
+          f"route {tag} {keys}: loss {trail} over 4 Adam steps with "
+          f"prev_output and prev_lc fed back; launches per step (sweep fwd, "
+          f"bwd, convcomb fwd, bwd, convbn2d fwd, bwd, tap_combine fwd, bwd) "
+          f"{want}, over the 5 steps {counted}; rel dist from the f32 step "
+          f"(kernel, plain): {rule4_txt}; ms per step: LC on {ms['on']:.3f} "
+          f"({1e3 * batch / ms['on']:.2f} frames/s), LC off {ms['off']:.3f} "
+          f"({1e3 * batch / ms['off']:.2f}); LC-on step split ms: forward "
+          f"x2 {split[0]:.3f}, loss {split[1]:.3f}, backward {split[2]:.3f}, "
+          f"Adam {split[3]:.3f}, lc_process {split[4]:.3f} (planner DP, 5 "
+          f"solves of [16, 3, 128, 384] {dp_ms:.3f}); peak memory GiB LC on "
+          f"{peak['on']:.3f}, LC off {peak['off']:.3f} [{card}]", flush=True)
+    del model, base, state, outs, loss, opt, runs, aux, refined
+    torch.cuda.empty_cache()
+    return counted
+
+
+def phase_lc_train(card):
+    """Phase 8: (a) the flat Base3D route with the combine kernel, its
+    B=1 step for the counts, (b) the default (fused) route."""
+    import torch
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+
+    flat = {"convcomb_pallas": False, "combine_pallas": True}
+    want_flat = (2, 2, 0, 0, 76, 76, 16, 16)
+    launches = _lc_route(card, "flat+tap_combine", flat, want_flat,
+                         rule4=True)
+
+    cfg = cfg_for(64, 64, 384, 256, "bfloat16", **flat)
+    mi, gt = _train_batch(1, 384, 256, torch.device("cuda"))
+    model = get_model(cfg, "cuda", seed=0)
+    before = launch_counts()
+    _, loss, _ = make_train_step(get_loss(cfg))(init_state(model, cfg), mi,
+                                                mi, gt, gt)
+    got = tuple(a - b for a, b in zip(launch_counts(), before))
+    check(got == want_flat and np.isfinite(loss.item()),
+          f"flat route B=1: launches {got} != {want_flat}, loss {loss}")
+    print(f"phase 8: flat route B=1 step: launches {got}, loss "
+          f"{loss.item():.5g} [{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    _lc_route(card, "convcomb", {}, (2, 2, 16, 16, 76, 76, 0, 0),
+              rule4=False)
+    return launches
 
 
 def main() -> int:
@@ -826,6 +1076,7 @@ def main() -> int:
         phase_flagship(card)
         launches = phase_train(card)
         phase_tail(card)
+        lc_launches = phase_lc_train(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -844,9 +1095,16 @@ def main() -> int:
             ("convbn2d", ("convbn2d", "quarter"), "convbn2d.cu",
              "depthestimation_tpu/ops/convbn2d_pallas.py:201"),
             ("convbn2d_bwd", ("convbn2d_bwd", "quarter"), "convbn2d.cu",
-             "depthestimation_tpu/ops/convbn2d_pallas.py:356")):
+             "depthestimation_tpu/ops/convbn2d_pallas.py:356"),
+            ("tap_combine", ("tap_combine", 32), "tap_combine.cu",
+             "depthestimation_tpu/ops/combine_pallas.py:63"),
+            ("tap_combine_bwd", ("tap_combine_bwd", 32), "tap_combine.cu",
+             "depthestimation_tpu/ops/combine_pallas.py:63")):
+        # each kernel's launches on the path that runs it: the train step
+        # (phase 6), or the LC-on step on the flat route (phase 8)
+        counted = lc_launches if name.startswith("tap_") else launches
         kernels.append({"name": name, "route": "cuda", "source": src + source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counted[name],
                         **rows[key]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,10 +2,11 @@
 
 Port of ``depthestimation_tpu/config.py`` (same schema, same defaults), so
 the port reads every file under ``configs/``. Of the ``tpu`` section the
-port honours ``tpu.dtype`` and ``tpu.convbn2d`` (the fused 2D ConvBN
-routes, ``models/base_model.py``). The TPU-only knobs ``remat``,
-``sweep_pallas``, ``convcomb_pallas``, ``combine_pallas`` and ``mesh`` are
-accepted and have no effect (see ``IGNORED_TPU_KEYS``).
+port honours ``tpu.dtype``, ``tpu.convbn2d`` (the fused 2D ConvBN routes),
+``tpu.convcomb_pallas`` (the fused or the flat Base3D stack) and
+``tpu.combine_pallas`` (the flat stack's depth-tap combine kernel); see
+``models/base_model.py``. The TPU-only knobs ``remat``, ``sweep_pallas``
+and ``mesh`` are accepted and have no effect (see ``IGNORED_TPU_KEYS``).
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ from typing import Any
 
 #: ``tpu.*`` keys the port accepts and ignores: they select TPU kernels,
 #: remat granularities or meshes that do not exist on the CUDA path
-IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "convcomb_pallas",
-                    "combine_pallas", "mesh")
+IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "mesh")
 
 
 class Config(dict):

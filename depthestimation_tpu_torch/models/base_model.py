@@ -11,9 +11,17 @@ draw comes from a ``torch.Generator`` the caller passes.
 Kernel dispatch is by configuration: a bf16 model runs plane-sweep stage 2
 and every Base3D layer on the Hopper kernels (``ops/sweep_kernel.py``,
 ``ops/convcomb_kernel.py``); an f32 model runs their plain versions, as
-the JAX package does on every backend. ``convbn2d`` routes the encoder's
-stride-1 ConvBN stacks and the decoder's refine tail through the fused 2D
-layer (``ops/convbn2d_kernel.py``) as the JAX package does
+the JAX package does on every backend. ``convcomb_pallas`` routes Base3D
+as the JAX package does (``_resolved_convcomb_pallas``): "auto" = the
+fused stack for a bf16 model; True / "interpret" = the fused stack at any
+dtype (on the kernel / on its plain version); False = the flat stack at
+any dtype. ``combine_pallas`` routes the flat stack's depth-tap combine
+(``_resolved_combine_pallas``): "auto" = off, as in JAX (the eager
+roll+mask form); True = every flat Conv3d combines through
+``ops/combine_kernel.py``; "interpret" = the same route on the kernel's
+plain version. ``conv3d_path`` names the route. ``convbn2d`` routes the
+encoder's stride-1 ConvBN stacks and the decoder's refine tail through the
+fused 2D layer (``ops/convbn2d_kernel.py``) as the JAX package does
 (``_resolved_convbn2d``): "auto" = the encoder's chain for a bf16 model in
 training; True = that, plus the decoder tail in both modes; "interpret" =
 both, in both modes, at any dtype; False = eager. The JAX package's other
@@ -45,7 +53,8 @@ class BaseModelNet(nn.Module):
     def __init__(self, feature_dim: int = 64, d: int = 64,
                  nmode: str = "exp7", bn_avg: bool = False,
                  sigma_soft_max: float = 10.0, n_views: int = 2,
-                 use_lc_prob: float = 0.7, dtype=None, convbn2d="auto"):
+                 use_lc_prob: float = 0.7, dtype=None, convbn2d="auto",
+                 convcomb_pallas="auto", combine_pallas="auto"):
         super().__init__()
         if nmode not in NMODES:
             raise NotImplementedError(
@@ -55,6 +64,8 @@ class BaseModelNet(nn.Module):
         self.sigma_soft_max = sigma_soft_max
         self.use_lc_prob = use_lc_prob
         self.dtype, self.convbn2d = dtype, convbn2d
+        self.convcomb_pallas = convcomb_pallas
+        self.combine_pallas = combine_pallas
         #: False holds the bf16 path to the kernels' plain versions
         self.use_kernels = True
         mul = feature_dim / 64.0
@@ -70,7 +81,31 @@ class BaseModelNet(nn.Module):
         self.conv0_2 = Conv(d, d, 3, 1, 1, dtype=dtype)
         in_ch = 2 + (nmode == "exp7_lc") + n_views
         self.based_3d = Base3D(in_ch, d, feature_dim=32, dres_count=2,
-                               bn_avg=bn_avg, dtype=dtype)
+                               bn_avg=bn_avg, dtype=dtype,
+                               convcomb=self._resolved_convcomb_pallas(),
+                               combine=self._resolved_combine_pallas())
+
+    def _resolved_convcomb_pallas(self):
+        if self.convcomb_pallas != "auto":
+            return self.convcomb_pallas
+        return self.dtype == torch.bfloat16
+
+    def _resolved_combine_pallas(self):
+        if self.combine_pallas != "auto":
+            return self.combine_pallas
+        return False
+
+    def conv3d_path(self, batch: int = 0, depth: int = 0, h: int = 0,
+                    w: int = 0) -> str:
+        """Which Base3D route a forward takes: "convcomb" (the fused
+        stack), "flat+tap_combine" (the flat stack, combining through
+        ``ops/combine_kernel.py``) or "flat" (the flat stack, eager
+        combine). The arguments are the JAX method's; no size gates the
+        route on CUDA."""
+        if self._resolved_convcomb_pallas():
+            return "convcomb"
+        return ("flat+tap_combine" if self._resolved_combine_pallas()
+                else "flat")
 
     def _resolved_convbn2d(self):
         if self.convbn2d != "auto":
@@ -113,8 +148,9 @@ class BaseModelNet(nn.Module):
     def _drop_prev_lc(self, prev_lc, like, generator):
         """In train mode, replace ``prev_lc`` by the log-uniform DPV with
         probability ``1 - use_lc_prob``: one Bernoulli draw per forward from
-        ``generator`` (``base_model.py:526-536``). No draw when ``prev_lc``
-        is None (the log-uniform default) or in eval."""
+        ``generator``, on its own device (``base_model.py:526-536``). No
+        draw when ``prev_lc`` is None (the log-uniform default) or in
+        eval."""
         uniform = self._prev_or_uniform(None, like, log=True)
         if prev_lc is None:
             return uniform
@@ -123,7 +159,8 @@ class BaseModelNet(nn.Module):
         if generator is None:
             raise ValueError("a train-mode forward with prev_lc draws the "
                              "prev_lc drop: pass a torch.Generator")
-        keep = torch.rand((), generator=generator).item() < self.use_lc_prob
+        keep = torch.rand((), generator=generator,
+                          device=generator.device).item() < self.use_lc_prob
         return prev_lc if keep else uniform
 
     def forward(self, model_input: dict,

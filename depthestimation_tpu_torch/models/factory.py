@@ -15,8 +15,10 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> BaseModelNet:
     caller names the CPU; without a card the default raises) in eval mode
     (``.train()`` switches to the train-mode forward).
 
-    The compute dtype is ``tpu.dtype``; ``tpu.convbn2d`` (default "auto")
-    routes the fused 2D ConvBN layers (``BaseModelNet``); the other ``tpu``
+    The compute dtype is ``tpu.dtype``; ``tpu.convbn2d``,
+    ``tpu.convcomb_pallas`` and ``tpu.combine_pallas`` (each "auto" by
+    default) route the fused 2D ConvBN layers, the Base3D stack and the
+    flat stack's depth-tap combine (``BaseModelNet``); the other ``tpu``
     keys are TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With
     ``seed`` the weights are drawn from a ``torch.Generator`` seeded with
     it; without, they are left for ``load_state_dict``.
@@ -33,7 +35,9 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> BaseModelNet:
         sigma_soft_max=cfg.var.sigma_soft_max,
         n_views=int(cfg.var.get("t_win", 1)) + 1,
         use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype,
-        convbn2d=tpu.get("convbn2d", "auto"))
+        convbn2d=tpu.get("convbn2d", "auto"),
+        convcomb_pallas=tpu.get("convcomb_pallas", "auto"),
+        combine_pallas=tpu.get("combine_pallas", "auto"))
     if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
         raise NotImplementedError("the gather sweep is not ported yet "
                                   "(ROADMAP.md, queue 1)")

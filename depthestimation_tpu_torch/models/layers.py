@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from depthestimation_tpu_torch.ops.combine_kernel import (tap_combine,
+                                                          tap_combine_plain)
 from depthestimation_tpu_torch.ops.convbn2d_kernel import (
     convbn2d_block, convbn2d_block_plain)
 from depthestimation_tpu_torch.ops.convcomb_kernel import (
@@ -241,22 +243,32 @@ class ConvBN(nn.Module):
 class Conv3d(nn.Module):
     """3x3x3 stride-1 'same' Conv3d (no bias) over the FLAT depth-major
     volume [B*D, C, H, W]: one 2D conv with the three depth taps stacked on
-    the output channels, then the roll+mask depth combine
-    (``layers.Conv3d`` flat path).
+    the output channels, then the depth combine (``layers.Conv3d`` flat
+    path). ``combine`` routes it: False = the eager roll+mask form, summed
+    in the compute dtype (``depth_combine``); True = the combine kernel's
+    wrapper (``ops/combine_kernel.tap_combine``: the kernel on a CUDA
+    tensor, f32 sums rounded once), at every N and F (the JAX gates ``n >=
+    192`` and ``features >= 8`` are a TPU measurement and a Mosaic tiling
+    limit); "interpret" = that route on the kernel's plain version.
 
     ``fused(...)`` runs the same conv through the fused block kernel
     (``ops/convcomb_kernel.py``) on the RAW previous output with the
     pending normalize applied on load, and returns (y_raw, stats)."""
 
-    def __init__(self, in_ch: int, features: int, depth: int, dtype=None):
+    def __init__(self, in_ch: int, features: int, depth: int, dtype=None,
+                 combine=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_ch, 3, 3, 3))
-        self.depth, self.dtype = depth, dtype
+        self.depth, self.dtype, self.combine = depth, dtype, combine
 
-    def forward(self, x):
+    def forward(self, x, use_kernel: bool = True):
         t = F.conv2d(_cast(x, self.dtype),
                      _cast(pack_wm(self.weight), self.dtype), padding=1)
-        return depth_combine(t, self.depth)
+        if not self.combine:
+            return depth_combine(t, self.depth)
+        if self.combine == "interpret" or not use_kernel:
+            return tap_combine_plain(t, self.depth)
+        return tap_combine(t.contiguous(), self.depth)
 
     def fused(self, x, a, b, relu: bool, use_kernel: bool = True):
         """x [N, C, H, W] bf16 raw input; a, b [C] f32 pending normalize."""
@@ -274,13 +286,13 @@ class ConvBN3d(nn.Module):
     """convbn_3d over the flat volume: Conv3d + BatchNorm."""
 
     def __init__(self, in_ch: int, features: int, depth: int,
-                 bn_running_avg: bool = False, dtype=None):
+                 bn_running_avg: bool = False, dtype=None, combine=False):
         super().__init__()
-        self.Conv3d_0 = Conv3d(in_ch, features, depth, dtype)
+        self.Conv3d_0 = Conv3d(in_ch, features, depth, dtype, combine)
         self.BatchNorm_0 = BatchNorm(features, bn_running_avg)
 
-    def forward(self, x):
-        return self.BatchNorm_0(self.Conv3d_0(x))
+    def forward(self, x, use_kernel: bool = True):
+        return self.BatchNorm_0(self.Conv3d_0(x, use_kernel))
 
     def fused(self, x, a, b, relu: bool, use_kernel: bool = True):
         """Fused chain: returns (y_raw, a', b') where (a', b') normalize

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "convcomb_bwd": [_VP] * 13 + [_I] * 12 + [_VP],
     "convbn2d_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
     "convbn2d_bwd": [_VP] * 12 + [_I] * 10 + [_VP],
+    "tap_combine_fwd": [_VP] * 2 + [_I] * 5 + [_VP],
+    "tap_combine_bwd": [_VP] * 2 + [_I] * 5 + [_VP],
 }
 
 

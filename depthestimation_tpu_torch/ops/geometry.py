@@ -1,6 +1,7 @@
 """Camera geometry: rays, intrinsics, back-projection, view synthesis.
 
-Port of ``depthestimation_tpu/ops/geometry.py`` (``intr_scale_unit``,
+Port of ``depthestimation_tpu/ops/geometry.py`` (``intr_scale``,
+``intr_scale_unit``,
 ``fov_from_intrinsics``, ``pixel_to_ray_array``, ``unit_ray_array_2d``,
 ``depth_to_pts``, ``minpool``, ``pixel2cam``, ``cam2pixel``,
 ``inverse_warp``, ``transform_dmap``). The setup helpers stay host numpy,
@@ -45,6 +46,15 @@ def fov_from_intrinsics(intr, width: int, height: int) -> tuple:
     hfov = math.degrees(math.atan(width / 2.0 / float(intr[0, 0]))) * 2.0
     vfov = math.degrees(math.atan(height / 2.0 / float(intr[1, 1]))) * 2.0
     return hfov, vfov
+
+
+def intr_scale(intr, raw_img_size, img_size):
+    """Intrinsics of an image resized from ``raw_img_size`` to ``img_size``
+    (both (W, H))."""
+    intr = np.array(intr, copy=True)
+    intr[0, :] *= float(img_size[0]) / float(raw_img_size[0])
+    intr[1, :] *= float(img_size[1]) / float(raw_img_size[1])
+    return intr
 
 
 def intr_scale_unit(intr, scale: float = 1.0):

@@ -6,12 +6,55 @@ gather behind the plane sweep's 4-tap bilinear sampling),
 ``resize_bilinear_align_corners`` and ``shift_rows``. Geometry matches the
 JAX functions exactly (zero padding, the same index and weight formulas).
 ``grid_sample`` and ``hwarp`` take a leading batch axis (the JAX per-item
-functions vmapped).
+functions vmapped). Two helpers stand in for JAX functions torch lacks:
+``interp`` (``jnp.interp``) and ``resize_linear`` (``jax.image.resize``
+with ``method="linear"``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor,
+           left=None, right=None) -> torch.Tensor:
+    """``jnp.interp`` along the last axis, batched over leading axes:
+    piecewise-linear ``fp(xp)`` at ``x``. xp, fp [..., N] with xp
+    increasing along N; x [..., M] (the leading axes broadcast).
+    ``left`` / ``right`` fill ``x < xp[0]`` / ``x > xp[-1]`` (default: the
+    end values; NaN is a legal fill). The same index and weight formulas
+    as JAX's, a zero-width segment taking its left value."""
+    lead = torch.broadcast_shapes(x.shape[:-1], xp.shape[:-1],
+                                  fp.shape[:-1])
+    x = x.expand(lead + x.shape[-1:]).contiguous()
+    xp = xp.expand(lead + xp.shape[-1:]).contiguous()
+    fp = fp.expand(lead + fp.shape[-1:]).contiguous()
+    n = xp.shape[-1]
+    i = torch.searchsorted(xp, x, right=True).clamp(1, n - 1)
+    x0, x1 = xp.gather(-1, i - 1), xp.gather(-1, i)
+    f0, f1 = fp.gather(-1, i - 1), fp.gather(-1, i)
+    dx = x1 - x0
+    dx0 = dx.abs() <= torch.finfo(xp.dtype).eps ** 2
+    f = torch.where(dx0, f0, f0 + ((x - x0) / torch.where(
+        dx0, torch.ones_like(dx), dx)) * (f1 - f0))
+    lo = fp[..., :1] if left is None else torch.as_tensor(
+        left, dtype=fp.dtype, device=fp.device)
+    hi = fp[..., -1:] if right is None else torch.as_tensor(
+        right, dtype=fp.dtype, device=fp.device)
+    f = torch.where(x < xp[..., :1], lo, f)
+    return torch.where(x > xp[..., -1:], hi, f)
+
+
+def resize_linear(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(x, x.shape[:-2] + size, method="linear")`` on the
+    last two axes: half-pixel centres, with the triangle kernel widened
+    when downsampling (JAX's default antialiasing) — torch's
+    ``antialias=True`` bilinear is the same filter."""
+    lead = x.shape[:-2]
+    y = F.interpolate(x.reshape((-1, 1) + x.shape[-2:]), size=tuple(size),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.reshape(lead + y.shape[-2:])
 
 
 def fast_take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,13 @@ class UFieldParams:
     quash: bool = False
 
     @staticmethod
+    def for_dataset(dataset_path: str) -> "UFieldParams":
+        if "ilim" in dataset_path or "sweep" in dataset_path:
+            return UFieldParams(pshift=0, zstart=1.0, zend=1.3, maxd=100.0,
+                                mind=3.0, quash=True)
+        return UFieldParams()  # kitti defaults
+
+    @staticmethod
     def from_sensor(unc_shift: float, unc_span: float, unc_ang: int) -> "UFieldParams":
         return UFieldParams(pshift=int(unc_ang), zstart=unc_shift,
                             zend=unc_shift + unc_span, maxd=100.0, mind=3.0,
@@ -34,25 +41,27 @@ class UFieldParams:
 
 def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
                log: bool = True):
-    """Collapse one item's DPV [D, H, W] into a top-down field.
+    """Collapse a DPV [..., D, H, W] into a top-down field, one item or a
+    batch (intr_up [..., 3, 3] with the same leading axes).
 
-    Returns (uf [D, W], masked_depthmap [H, W]). A column with no pixel in
-    the band divides by zero, as in JAX.
+    Returns (uf [..., D, W], masked_depthmap [..., H, W]). A column with no
+    pixel in the band divides by zero, as in JAX.
     """
     p = params
     dpv_shifted = shift_rows(dpv, p.pshift)
-    dm_shifted = dpv_to_depthmap(dpv_shifted[None], d_candi, log=log)[0]
-    dm_pred = dpv_to_depthmap(dpv[None], d_candi, log=log)[0]
+    dm_shifted = dpv_to_depthmap(dpv_shifted, d_candi, log=log)
+    dm_pred = dpv_to_depthmap(dpv, d_candi, log=log)
 
-    pts = depth_to_pts(dm_shifted, intr_up)
-    zero_mask = ~((pts[1] > p.zend) | (pts[1] < p.zstart)
-                  | (pts[2] > p.maxd - 1) | (pts[2] < p.mind))
+    pts = depth_to_pts(dm_shifted, intr_up)             # [..., 3, H, W]
+    y, z = pts[..., 1, :, :], pts[..., 2, :, :]
+    zero_mask = ~((y > p.zend) | (y < p.zstart)
+                  | (z > p.maxd - 1) | (z < p.mind))
     zero_mask = zero_mask.to(dpv.dtype)
 
     if p.quash:
         cleaned = dm_shifted * zero_mask
         cleaned = torch.where(cleaned == 0, 1000.0, cleaned)
-        col_min = cleaned.min(dim=0).values
+        col_min = cleaned.amin(dim=-2, keepdim=True)
         quash_mask = ((cleaned > col_min - 1.0)
                       & (cleaned < col_min + 1.0)).to(dpv.dtype)
         zero_mask = zero_mask * quash_mask
@@ -61,6 +70,6 @@ def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
     dm_pred_zero = dm_pred * zero_mask_pred
 
     prob = torch.exp(dpv) if log else dpv
-    uf = (prob * zero_mask_pred[None]).sum(dim=1)
-    uf = uf / zero_mask.sum(dim=0)[None]
+    uf = (prob * zero_mask_pred[..., None, :, :]).sum(dim=-2)
+    uf = uf / zero_mask.sum(dim=-2)[..., None, :]
     return uf, dm_pred_zero

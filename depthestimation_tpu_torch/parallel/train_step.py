@@ -5,15 +5,16 @@ the forward of both camera sides, the loss, one backward and one optimizer
 update, with the 1/4-resolution ``prev_output`` feedback in ``aux``. The
 parameters stay f32 and the optimizer state f32; a bf16 model computes in
 bf16 (its kernels) and casts at use. PyTorch updates the parameters and the
-optimizer state in place, where JAX returns new ones. ``make_train_rollout``
-(the ``lax.scan`` over frames) and the in-step light-curtain loop are not
-ported yet (ROADMAP.md, queue 1).
+optimizer state in place, where JAX returns new ones. With ``lc_fn`` the
+light-curtain loop runs inside the step on the detached refined DPVs and
+its ``prev_lc`` feedback lands in ``aux``. ``make_train_rollout`` (the
+``lax.scan`` over frames) is not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -79,13 +80,21 @@ def _quarter(dpv: torch.Tensor) -> torch.Tensor:
     return dpv[:, :, ::4, ::4].detach()
 
 
-def make_train_step(loss_fn: Callable) -> Callable:
+def make_train_step(loss_fn: Callable,
+                    lc_fn: Optional[Callable] = None) -> Callable:
     """``step(state, mi_l, mi_r, gt_l, gt_r, generator) -> (state, loss,
     aux)``: both camera sides forward (left, then right, so the right side
     sees the running statistics the left one updated), the loss on
     ``[out_l, out_r]``, one backward, one optimizer step. ``generator``
     feeds the train-mode ``prev_lc`` drops, left first. ``aux`` holds the
-    detached 1/4-res ``prev_output`` feedback and refined DPVs."""
+    detached 1/4-res ``prev_output`` feedback and refined DPVs.
+
+    ``lc_fn``: the fused light-curtain loop, ``(refined_l, refined_r, mi_l,
+    mi_r, generator) -> (prev_lc_l, prev_lc_r)`` (both 1/4-res log DPVs;
+    ``trainer.default.fused_lc_fn``), run after the update on the detached
+    refined DPVs; its results land in ``aux["prev_lc_left"]`` and
+    ``aux["prev_lc_right"]``. It draws from ``generator`` after the two
+    drops. Without it the step and its draws are unchanged."""
 
     def step(state: TrainState, mi_l: dict, mi_r: dict, gt_l: dict,
              gt_r: dict, generator: torch.Generator | None = None):
@@ -104,6 +113,10 @@ def make_train_step(loss_fn: Callable) -> Callable:
                "prev_output_right": _quarter(ref_r),
                "refined_left": ref_l.detach(),
                "refined_right": ref_r.detach()}
+        if lc_fn is not None:
+            aux["prev_lc_left"], aux["prev_lc_right"] = lc_fn(
+                aux["refined_left"], aux["refined_right"], mi_l, mi_r,
+                generator)
         return state, loss.detach(), aux
 
     return step

@@ -409,3 +409,157 @@ def test_convbn2d_wrappers_refuse_what_the_kernels_do_not_take(dev):
         c2.convbn2d_block_bwd(x, wt, ab, ab, y, y.float(), st)
     with pytest.raises(ValueError):                # wrong stats shape
         c2.convbn2d_block_bwd(x, wt, ab, ab, y, y, st[:4])
+
+
+# ---- tap_combine: the flat Conv3d's depth-tap combine (csrc/tap_combine.cu)
+
+from depthestimation_tpu_torch.ops import combine_kernel as tc  # noqa: E402
+
+# (N, depth, F, H, W): the vector path, runs that are no multiple of the
+# 16-byte vector (the scalar path), F = 1, depth 1 (both edges on every row)
+_TC_SHAPES = [(16, 8, 32, 12, 16), (6, 3, 1, 5, 7), (8, 4, 3, 3, 5),
+              (4, 1, 2, 4, 4), (64, 64, 1, 64, 96), (128, 64, 32, 64, 96)]
+
+
+@pytest.mark.parametrize("n,depth,f,h,w", _TC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tap_combine_kernels_equal_plain_bit_for_bit(dev, n, depth, f, h, w,
+                                                     dtype):
+    """No multiply and a fixed order of f32 sums: forward and backward
+    equal their plain versions exactly, in bf16 and in f32."""
+    gen = torch.Generator().manual_seed(n + f + h)
+    t = _randn(gen, n, 3 * f, h, w).to(dev, dtype)
+    before = (tc.tap_combine.launches, tc.tap_combine.bwd_launches)
+    y = tc.tap_combine(t, depth)
+    g = _randn(gen, n, f, h, w).to(dev, dtype)
+    dt = tc.tap_combine_bwd(g, depth)
+    torch.cuda.synchronize()
+    assert (tc.tap_combine.launches, tc.tap_combine.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == dtype and y.shape == (n, f, h, w)
+    assert torch.equal(y, tc.tap_combine_plain(t, depth))
+    assert dt.dtype == dtype and dt.shape == t.shape
+    assert torch.equal(dt, tc.tap_combine_bwd_plain(g, depth))
+
+
+def test_tap_combine_takes_an_unaligned_view(dev):
+    """A contiguous view whose storage does not start on 16 bytes takes
+    the scalar kernel and still equals the plain version."""
+    gen = torch.Generator().manual_seed(3)
+    buf = _randn(gen, 8 * 12 * 4 * 8 + 1).to(dev, torch.bfloat16)
+    t = buf[1:].reshape(8, 12, 4, 8)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    assert torch.equal(tc.tap_combine(t, 4), tc.tap_combine_plain(t, 4))
+
+
+def test_tap_combine_autograd_runs_the_backward_kernel(dev):
+    gen = torch.Generator().manual_seed(4)
+    t = _randn(gen, 8, 6, 5, 7).to(dev).requires_grad_()
+    g = _randn(gen, 8, 2, 5, 7).to(dev)
+    before = tc.tap_combine.bwd_launches
+    tc.tap_combine(t, 4).backward(g)
+    torch.cuda.synchronize()
+    assert tc.tap_combine.bwd_launches == before + 1
+    tp = t.detach().clone().requires_grad_()
+    tc.tap_combine_plain(tp, 4).backward(g)
+    assert torch.equal(t.grad, tp.grad)
+
+
+def test_tap_combine_refuses_what_the_kernel_does_not_take(dev):
+    t = torch.zeros(8, 6, 4, 4, device=dev)
+    with pytest.raises(TypeError):                 # f16
+        tc.tap_combine(t.half(), 4)
+    with pytest.raises(ValueError):                # rows not a multiple of D
+        tc.tap_combine(t, 3)
+    with pytest.raises(ValueError):                # channels not 3F
+        tc.tap_combine(t[:, :5].contiguous(), 4)
+    with pytest.raises(ValueError):                # not contiguous
+        tc.tap_combine(t.transpose(2, 3), 4)
+    with pytest.raises(ValueError):
+        tc.tap_combine_bwd(t.transpose(2, 3), 4)
+
+
+def test_bf16_train_step_through_the_flat_route(dev):
+    """``tpu.convcomb_pallas: false, tpu.combine_pallas: true``: Base3D
+    runs the flat stack and each of its 8 convs combines through the
+    kernel, per camera side, forward and backward; the fused Base3D kernel
+    is not launched. Loss and gradients by rule 4 against the same route
+    on the plain version."""
+    from depthestimation_tpu_torch.data.synthetic import make_batch, to_device
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+
+    def cfg_of(dtype):
+        cfg = _train_cfg(dtype, "auto")
+        cfg.tpu.convcomb_pallas = False
+        cfg.tpu.combine_pallas = True
+        return cfg
+
+    mi_np, gt_np = make_batch(batch=2, h=48, w=72, d_min=3.0, d_max=30.0,
+                              ndepth=16)
+    mi, gt = to_device(mi_np, dev), to_device(gt_np, dev)
+    base = get_model(cfg_of("bfloat16"), dev, 0)
+    assert base.conv3d_path() == "flat+tap_combine"
+    grads, losses = {}, {}
+    for name, dtype, kernels in (("kernel", "bfloat16", True),
+                                 ("plain", "bfloat16", False),
+                                 ("f32", "float32", False)):
+        cfg = cfg_of(dtype)
+        model = get_model(cfg, dev)
+        model.load_state_dict(base.state_dict())
+        model.use_kernels = kernels
+        counts = _counts() + (tc.tap_combine.launches,
+                              tc.tap_combine.bwd_launches)
+        step = make_train_step(get_loss(cfg))
+        _, loss, _ = step(init_state(model, cfg), mi, mi, gt, gt)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(
+            _counts() + (tc.tap_combine.launches,
+                         tc.tap_combine.bwd_launches), counts))
+        assert got == ((2, 2, 0, 0, 28, 28, 16, 16) if kernels
+                       else (0,) * 8), name
+        losses[name] = loss.item()
+        grads[name] = torch.cat([p.grad.flatten()
+                                 for p in model.parameters()])
+        assert torch.isfinite(grads[name]).all()
+
+    def dist(k):
+        return (torch.linalg.vector_norm(grads[k] - grads["f32"])
+                / torch.linalg.vector_norm(grads["f32"])).item()
+
+    assert dist("kernel") <= 3 * dist("plain") + 4e-3
+    assert (abs(losses["kernel"] - losses["f32"])
+            <= 3 * abs(losses["plain"] - losses["f32"])
+            + 4e-3 * abs(losses["f32"]))
+
+
+@pytest.mark.parametrize("max_alpha", [None, 4.0e7])
+def test_planner_on_the_card_gives_the_cpu_design_points(dev, max_alpha):
+    """Ties decide paths: the batched DP's ``max`` and ``argmax`` must
+    return the first maximum on the card as on the CPU (infeasible hops
+    all score exactly -1e30)."""
+    from depthestimation_tpu_torch.lc import LCDevice, PlannerRT
+    from depthestimation_tpu_torch.ops.dpv import powerf
+
+    w, r = 48, 24
+    intr = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, 16], [0, 0, 1]],
+                    np.float32)
+    ltc = np.eye(4, dtype=np.float32)
+    ltc[0, 3] = 0.2
+    laser = {"lTc": ltc, "fov": 80.0, "laser_timestep": 2e-4}
+    if max_alpha is not None:
+        laser["max_alpha"] = max_alpha
+    cam = {"width": w, "height": 32, "matrix": intr,
+           "distortion": [0.0] * 5, "hit_mode": 1, "hit_noise": 0.0}
+    rs = np.random.RandomState(0)
+    field = rs.rand(3, r, w).astype(np.float32)
+    field[1] = np.round(field[1] * 4) / 4          # many exact ties
+    field[2, :, ::3] = 0.0
+    pts = {}
+    for d in ("cpu", dev):
+        planner = PlannerRT(LCDevice(cam, laser, d), powerf(3, 30, r, 1.0), w)
+        pts[str(d)] = planner.get_design_points(
+            torch.from_numpy(field).to(d)).cpu()
+    assert torch.equal(pts["cpu"], pts[str(dev)])

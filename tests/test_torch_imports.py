@@ -31,13 +31,39 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["modules"]) >= 30, got["modules"]
+    assert len(got["modules"]) >= 38, got["modules"]
     for name in ("losses.base_loss", "losses.blocks", "losses.factory",
-                 "parallel.train_step", "trainer.default"):
+                 "parallel.train_step", "trainer.default",
+                 "ops.combine_kernel", "lc.device", "lc.transform",
+                 "lc.fieldwarp", "lc.planner", "lc.curtain", "lc.process"):
         assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]
     assert got["built"] is False
+
+
+def test_sources_name_no_jax():
+    """No module of the port, nor chip_smoke.py, imports ``jax`` or the
+    JAX package, not even inside a function (a static check: the probe
+    above only sees what an import runs)."""
+    import ast
+
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT,
+                                               "depthestimation_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= 40
+    foreign = ("jax", "jaxlib", "flax", "optax", "depthestimation_tpu")
+    for path in paths:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                assert n.split(".")[0] not in foreign, (path, n)
 
 
 def test_ctypes_signatures_match_the_c_launchers():

@@ -108,10 +108,15 @@ def test_kernel_dispatch_by_dtype(spies, dtype, want):
 
 def test_get_model_seeded_and_tpu_knobs_ignored():
     """The same seed gives the same weights; the TPU-only knobs are
-    accepted and change nothing."""
+    accepted and change nothing. ``convcomb_pallas`` and ``combine_pallas``
+    are not among them: they route Base3D
+    (tests/test_torch_combine.py)."""
+    assert tcfg.IGNORED_TPU_KEYS == ("remat", "sweep_pallas", "mesh")
     knobs = {k: True for k in tcfg.IGNORED_TPU_KEYS}
     a = get_model(_cfg("bfloat16"), "cpu", seed=5).state_dict()
-    b = get_model(_cfg("bfloat16", **knobs), "cpu", seed=5).state_dict()
+    m = get_model(_cfg("bfloat16", **knobs), "cpu", seed=5)
+    assert m.conv3d_path() == "convcomb"
+    b = m.state_dict()
     c = get_model(_cfg("bfloat16"), "cpu", seed=6).state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
