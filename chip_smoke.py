@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU: the serving
-path, the bf16 train step, and the train step with the light-curtain loop
-inside.
+path, the bf16 train step, the train step with the light-curtain loop
+inside, and PWCLite optical-flow training.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -15,8 +15,11 @@ Phases, one line each (a failed phase exits non-zero before the result):
    PyTorch version on the card, at the shapes the main paths give it,
    with times from CUDA events beside the plain version's, one PyTorch
    library call's where one computes the same function (cuDNN's conv),
-   and the bound (bytes over 3.35 TB/s or bf16 operations over 989
-   TFLOP/s, whichever is larger);
+   and the bound (bytes over 3.35 TB/s or operations over the peak of
+   their type, 989 bf16 tensor-core TFLOP/s or 67 f32 TFLOP/s, whichever
+   is larger); the correlation pair at the five pyramid levels of phase 9,
+   and the flat conv3d op (forward, dx, dW) at Base3D's layer shape in
+   bf16 and f32 beside cuDNN's conv3d and the port's flat ``Conv3d``;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -48,7 +51,18 @@ Phases, one line each (a failed phase exits non-zero before the result):
    and backward, no convcomb launch; rule-4 gradients; one B=1 step for
    its counts) and (b) on the default route; for each the LC-on and LC-off
    step ms in turns, the step's split (forward, loss, backward, Adam,
-   lc_process and the planner's DP inside it) and peak memory.
+   lc_process and the planner's DP inside it) and peak memory;
+9. flow training (``configs/sintel_flow.json``: PWCLite, UnFlowLoss,
+   SintelTrainer; f32, no TF32) at 384x832, B=8, on synthetic pairs:
+   one step's loss and gradients through the correlation kernels against
+   the plain path; 4 Adam steps through ``_run_one_epoch`` (loss finite
+   and lower after them; per step 10 correlation launches forward and 5
+   backward, the backward flows' pass taking no gradient, and no other
+   kernel of the port); ms per step in 8 turns of the kernel and plain
+   paths (the median of each path's 4, and all of them), split into
+   forward, loss, backward and Adam, with peak memory;
+   ``_validate_with_gt`` on 2 batches (finite EPE); one SintelARTrainer
+   step at B=2 (20 + 15 correlation launches, finite l_atst and l_ot).
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -66,9 +80,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 D_MIN, D_MAX = 5.0, 40.0
-# H100 SXM: HBM bytes/s and dense bf16 tensor-core FLOP/s (NVIDIA's data
-# sheet; the peaks assume the full 700 W power limit)
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+# H100 SXM: HBM bytes/s, dense bf16 tensor-core FLOP/s and f32 FLOP/s
+# outside the tensor cores (NVIDIA's data sheet; the peaks assume the full
+# 700 W power limit)
+HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 class PhaseError(RuntimeError):
@@ -109,11 +124,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of the bytes over HBM's rate and the operations over the
-    bf16 peak."""
-    tb, tf = n_bytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    peak of their type (bf16 tensor cores unless named)."""
+    tb, tf = n_bytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -491,6 +506,130 @@ def phase_kernels(card):
                       f"ms, plain {bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms "
                       f"({bbd[1]}) [{card}]", flush=True)
                 del t, g, y, dt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_flow(card):
+    """Phase 3, the flow slice's kernels: the correlation pair at the five
+    pyramid levels of phase 9's step, the flat conv3d op at Base3D's layer
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from depthestimation_tpu_torch.models.layers import Conv3d
+    from depthestimation_tpu_torch.ops.conv3d_kernel import (
+        conv3d_flat_dw, conv3d_flat_dw_plain, conv3d_flat_fwd,
+        conv3d_flat_plain, flip_weight)
+    from depthestimation_tpu_torch.ops.correlation import (
+        correlation_batched, correlation_bwd_plain)
+    from depthestimation_tpu_torch.ops.correlation_kernel import (
+        correlate, correlate_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+
+    # correlation, f32, md 4, B=8 at PWCLite's levels of a 384x832 pair;
+    # within 1e-5 max|plain| (f32 sums in another order). The operations
+    # are f32 FMAs on the CUDA cores: the bound uses the f32 peak.
+    for c, h, w in ((192, 6, 13), (128, 12, 26), (96, 24, 52),
+                    (64, 48, 104), (32, 96, 208)):
+        x1 = torch.randn(8, c, h, w, generator=gen).to(dev)
+        x2 = torch.randn(8, c, h, w, generator=gen).to(dev)
+        g = torch.randn(8, 81, h, w, generator=gen).to(dev)
+        out = correlate(x1, x2, 4)
+        got = correlate_bwd(x1, x2, g, 4)
+        torch.cuda.synchronize()
+        want = (correlation_batched(x1, x2, 4),) + correlation_bwd_plain(
+            x1, x2, g, 4)
+        errs = []
+        for a, b, nm in zip((out,) + got, want, ("out", "dx1", "dx2")):
+            e = (a - b).abs().max().item()
+            bnd = 1e-5 * b.abs().max().item()
+            check(np.isfinite(e) and e <= bnd,
+                  f"correlation C={c} {h}x{w} {nm}: max|err| {e} > {bnd}")
+            errs.append(e)
+        ms = cuda_ms(lambda: correlate(x1, x2, 4), 20)
+        plain_ms = cuda_ms(lambda: correlation_batched(x1, x2, 4), 5)
+        bms = cuda_ms(lambda: correlate_bwd(x1, x2, g, 4), 20)
+        bplain_ms = cuda_ms(lambda: correlation_bwd_plain(x1, x2, g, 4), 3)
+        flops = 2.0 * 81 * c * 8 * h * w
+        bd = bound(nbytes(x1, x2, out), flops, FP32_FLOPS)
+        bbd = bound(nbytes(x1, x2, g, *got), 2.0 * flops, FP32_FLOPS)
+        rows[("correlation", c)] = row(errs[0], ms, plain_ms, None, bd)
+        rows[("correlation_bwd", c)] = row(max(errs[1:]), bms, bplain_ms,
+                                           None, bbd)
+        print(f"phase 3: correlation B=8 C={c} {h}x{w} md=4 f32: max|err| "
+              f"out, dx1, dx2 {errs[0]:.4g}, {errs[1]:.4g}, {errs[2]:.4g} "
+              f"(max {want[0].abs().max().item():.4g}, "
+              f"{want[1].abs().max().item():.4g}); forward kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
+              f"({bd[1]}); backward kernel {bms:.4f} ms, plain "
+              f"{bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms ({bbd[1]}) "
+              f"[{card}]", flush=True)
+        del x1, x2, g, out, got, want
+
+    # the flat conv3d op at Base3D's layer, [512, 32, 64, 96] -> 32, D=64:
+    # rule 3 (3% of max|plain|) for y, dx and dW; the library yardsticks
+    # cuDNN's conv3d on the 5-D volume and its backward, and the port's
+    # flat Conv3d (cuDNN's stacked taps + tap_combine) beside them
+    n, c, f, h, w, depth = 512, 32, 32, 64, 96, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        x = torch.randn(n, c, h, w, generator=gen).to(dev, dtype)
+        wt = (torch.randn(f, c, 3, 3, 3, generator=gen)
+              * (2.0 / (27 * f)) ** 0.5).to(dev)
+        dy = (torch.randn(n, f, h, w, generator=gen) * 0.1).to(dev, dtype)
+        kt = flip_weight(wt)
+        got = (conv3d_flat_fwd(x, wt, depth), conv3d_flat_fwd(dy, kt, depth),
+               conv3d_flat_dw(x, dy, depth))
+        torch.cuda.synchronize()
+        want = (conv3d_flat_plain(x, wt, depth),
+                conv3d_flat_plain(dy, kt, depth),
+                conv3d_flat_dw_plain(x, dy, depth))
+        errs = []
+        for a, b, nm in zip(got, want, ("y", "dx", "dW")):
+            e = (a.float() - b.float()).abs().max().item()
+            bnd = 0.03 * b.float().abs().max().item()
+            check(np.isfinite(e) and e <= bnd,
+                  f"conv3d_flat {tag} {nm}: max|err| {e} > 3% ({bnd})")
+            errs.append(e)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        flops = 2.0 * n * h * w * f * 27 * c
+        ms = cuda_ms(lambda: conv3d_flat_fwd(x, wt, depth), 5)
+        plain_ms = cuda_ms(lambda: conv3d_flat_plain(x, wt, depth), 5)
+        dx_ms = cuda_ms(lambda: conv3d_flat_fwd(dy, kt, depth), 5)
+        dw_ms = cuda_ms(lambda: conv3d_flat_dw(x, dy, depth), 5)
+        dw_plain_ms = cuda_ms(lambda: conv3d_flat_dw_plain(x, dy, depth), 3)
+        x5 = x.reshape(n // depth, depth, c, h, w).transpose(1, 2)
+        x5 = x5.contiguous()
+        dy5 = dy.reshape(n // depth, depth, f, h, w).transpose(1, 2)
+        dy5 = dy5.contiguous()
+        w5 = wt.to(dtype)
+        lib_ms = cuda_ms(lambda: F.conv3d(x5, w5, padding=1), 5)
+        blib_ms = cuda_ms(lambda: _conv_bwd(dy5, x5, w5), 5)
+        layer = Conv3d(c, f, depth, dtype=dtype if dtype != torch.float32
+                       else None, combine=True).to(dev)
+        with torch.no_grad():
+            layer.weight.copy_(wt)
+            flat_ms = cuda_ms(lambda: layer(x), 5)
+        bd = bound(nbytes(x, wt, got[0]), flops, peak)
+        dbd = bound(nbytes(x, dy, got[2]), flops, peak)
+        rows[("conv3d_flat", tag)] = row(max(errs[:2]), ms, plain_ms,
+                                         lib_ms, bd)
+        rows[("conv3d_flat_dw", tag)] = row(errs[2], dw_ms, dw_plain_ms,
+                                            blib_ms, dbd)
+        print(f"phase 3: conv3d_flat N={n} C={c} F={f} {h}x{w} D={depth} "
+              f"{tag}: max|err| y, dx, dW {errs[0]:.4g}, {errs[1]:.4g}, "
+              f"{errs[2]:.4g} (max {want[0].float().abs().max().item():.4g},"
+              f" {want[1].float().abs().max().item():.4g}, "
+              f"{want[2].abs().max().item():.4g}); forward kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, cuDNN conv3d {lib_ms:.4f} ms, "
+              f"flat Conv3d (cuDNN taps + tap_combine) {flat_ms:.4f} ms, "
+              f"bound {bd[0]:.4f} ms ({bd[1]}); dx kernel {dx_ms:.4f} ms; "
+              f"dW kernel {dw_ms:.4f} ms, plain {dw_plain_ms:.4f} ms, cuDNN "
+              f"conv3d backward (dx and dW) {blib_ms:.4f} ms, bound "
+              f"{dbd[0]:.4f} ms ({dbd[1]}) [{card}]", flush=True)
+        del x, dy, got, want, x5, dy5, layer
         torch.cuda.empty_cache()
     return rows
 
@@ -1048,6 +1187,218 @@ def phase_lc_train(card):
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+
+FLOW_COUNT_NAMES = ("correlation", "correlation_bwd", "conv3d_flat",
+                    "conv3d_flat_dw")
+
+
+def _flow_wrappers():
+    from depthestimation_tpu_torch.ops.conv3d_kernel import conv3d_flat
+    from depthestimation_tpu_torch.ops.correlation_kernel import correlate
+    return ((correlate, "launches"), (correlate, "bwd_launches"),
+            (conv3d_flat, "launches"), (conv3d_flat, "dw_launches"))
+
+
+def flow_counts():
+    """(correlation fwd, bwd, conv3d fwd, dw) launches."""
+    return tuple(getattr(k, a) for k, a in _flow_wrappers())
+
+
+def reset_flow_counts():
+    for k, a in _flow_wrappers():
+        setattr(k, a, 0)
+
+
+def _flow_groups(model):
+    import torch
+    groups = ("extractor.", "estimator.", "context.", "conv1x1_")
+    return {g.rstrip("._"): torch.cat([p.grad.flatten() for k, p in
+                                       model.named_parameters()
+                                       if k.startswith(g)])
+            for g in groups}
+
+
+def phase_flow(card):
+    """Phase 9: PWCLite flow training through the normal entry points."""
+    import copy
+
+    import torch
+    from depthestimation_tpu_torch.config import load_config
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.trainer.factory import get_trainer
+    from depthestimation_tpu_torch.trainer.sintel import (
+        synthetic_flow_batches)
+    from depthestimation_tpu_torch.utils.logger import init_logger
+
+    h, w, batch = 384, 832, 8
+    dev = torch.device("cuda")
+    cfg = load_config(os.path.join(ROOT, "configs", "sintel_flow.json"))
+    cfg.train.update(batch_size=batch, epoch_size=4, valid_size=2,
+                     print_freq=4)
+    t0 = time.perf_counter()
+    train = synthetic_flow_batches(4, batch=batch, h=h, w=w, seed=0)
+    val = synthetic_flow_batches(2, batch=batch, h=h, w=w, seed=1)
+    data_s = time.perf_counter() - t0
+    base = get_model(cfg, dev, seed=0)
+    check(base.output_level == 4 and base.search_range == 4
+          and next(base.parameters()).dtype == torch.float32,
+          "get_model(pwclite) is not PWCLite at output level 4, md 4, f32")
+    log = init_logger("chip_smoke")
+    save_root = os.path.join(ROOT, "build", "chip_smoke_flow")
+
+    def trainer(model, c=cfg, loaders=(train, val)):
+        return get_trainer(c)(0, model, get_loss(c), log, save_root, c,
+                              *loaders)
+
+    def pair_of(data):
+        return torch.cat([torch.as_tensor(data[k], dtype=torch.float32,
+                                          device=dev)
+                          for k in ("img1", "img2")], dim=1)
+
+    # one step's loss and gradients from the same weights through the
+    # correlation kernels and through the plain path, both f32
+    pair0 = pair_of(train[0])
+    losses0, grads, masks = {}, {}, {}
+    for kernels in (True, False):
+        m = copy.deepcopy(base).train()
+        m.use_kernels = kernels
+        loss, terms = get_loss(cfg)(m(pair0, with_bk=True), pair0,
+                                    return_terms=True)
+        loss.backward()
+        losses0[kernels] = loss.item()
+        masks[kernels] = terms["noc_mask"]
+        grads[kernels] = _flow_groups(m)
+        del m, loss, terms
+    dloss = abs(losses0[True] - losses0[False]) / abs(losses0[False])
+    check(np.isfinite(losses0[True]) and dloss <= 1e-4,
+          f"flow step: kernel loss {losses0[True]} vs plain "
+          f"{losses0[False]} ({dloss:.3g} > 1e-4 relative)")
+    dists = {g: _dist(grads[True][g], grads[False][g]) for g in grads[True]}
+    for g, d in dists.items():
+        check(d <= 1e-3, f"flow step: {g} gradient rel-L2 {d:.4g} > 1e-3")
+    mask_diff = int((masks[True] != masks[False]).sum().item())
+
+    # the main path: 4 Adam steps through the trainer's epoch loop, counted
+    model = copy.deepcopy(base)
+    tr = trainer(model)
+    with torch.no_grad():
+        before_loss = tr.loss_func(model(pair0, with_bk=True), pair0).item()
+    step, seen = tr._step, []
+
+    def counted_step(img_pair, draws=None):
+        c0 = flow_counts() + launch_counts()
+        out = step(img_pair, draws)
+        seen.append((out[0].item(), tuple(
+            a - b for a, b in zip(flow_counts() + launch_counts(), c0))))
+        return out
+
+    tr._step = counted_step
+    reset_counts()
+    reset_flow_counts()
+    tr._run_one_epoch()
+    torch.cuda.synchronize()
+    counted = dict(zip(FLOW_COUNT_NAMES, flow_counts()))
+    others = launch_counts()
+    tr._step = step
+    want = (10, 5, 0, 0) + (0,) * len(others)
+    for i, (loss, got) in enumerate(seen):
+        check(got == want and np.isfinite(loss),
+              f"flow step {i}: loss {loss}, launches (correlation fwd, bwd, "
+              f"conv3d fwd, dw, sweep fwd, bwd, convcomb fwd, bwd, convbn2d "
+              f"fwd, bwd, tap_combine fwd, bwd) {got} != {want}")
+    check(len(seen) == 4 and tr.i_epoch == 1,
+          f"flow: {len(seen)} steps in the epoch, not 4")
+    with torch.no_grad():
+        after_loss = tr.loss_func(model(pair0, with_bk=True), pair0).item()
+    check(after_loss < before_loss,
+          f"flow: loss on the first batch {before_loss} -> {after_loss} "
+          f"after 4 steps")
+
+    # validation: 2 batches, finite EPE
+    epe = tr._validate_with_gt()
+    check(np.isfinite(epe), f"flow: validation EPE {epe}")
+
+    # ms per step in 8 turns of 3 steps (kernel, plain, plain, kernel,
+    # ...: each path runs first as often), each after one untimed step;
+    # peak memory; each path's split into forward, loss, backward and Adam
+    runs = {}
+    for kernels in (True, False):
+        m = copy.deepcopy(base)
+        m.use_kernels = kernels
+        runs[kernels] = trainer(m)
+    t = {True: [], False: []}
+    peak = {}
+    for kernels in (True, False, False, True) * 2:
+        r = runs[kernels]
+        r._step(pair0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t[kernels].append(cuda_ms(lambda: r._step(pair0), 3, warmup=0))
+        peak[kernels] = torch.cuda.max_memory_allocated() / 2**30
+    ms = {k: float(np.median(v)) for k, v in t.items()}
+    split = {}
+    for kernels, r in runs.items():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        r.optimizer.zero_grad(set_to_none=True)
+        out = r.model(pair0, with_bk=True)
+        ev[1].record()
+        loss = r.loss_func(out, pair0)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        r.optimizer.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        split[kernels] = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+        del out, loss
+    del runs
+
+    # one SintelARTrainer step at B=2: the with_bk pass and two student
+    # passes forward (20), the forward flows' pass and the students'
+    # backward (15); l_atst and l_ot finite
+    cfg_ar = cfg.copy()
+    cfg_ar.data.trainer_name = "sintel_ar"
+    ar_pair = pair_of(synthetic_flow_batches(1, batch=2, h=h, w=w,
+                                             seed=2)[0])
+    ar = trainer(copy.deepcopy(base), cfg_ar)
+    reset_flow_counts()
+    ar_loss, ar_terms = ar._step(ar_pair)
+    torch.cuda.synchronize()
+    ar_got = flow_counts()
+    check(ar_got == (20, 15, 0, 0) and np.isfinite(ar_loss.item())
+          and all(np.isfinite(ar_terms[k].item()) for k in ("l_atst", "l_ot")),
+          f"flow AR step: launches {ar_got} != (20, 15, 0, 0) or loss "
+          f"{ar_loss.item()}, terms {ar_terms}")
+
+    trail = " -> ".join(f"{loss:.5g}" for loss, _ in seen)
+    grads_s = ", ".join(f"{g} {d:.3g}" for g, d in dists.items())
+    fps = {k: 1e3 * batch / v for k, v in ms.items()}
+    sp = {k: ", ".join(f"{x:.3f}" for x in v) for k, v in split.items()}
+    print(f"phase 9: flow SintelTrainer PWCLite {w}x{h} B={batch} f32 "
+          f"(synthetic pairs made in {data_s:.1f} s): kernel vs plain one "
+          f"step: loss {losses0[True]:.6g} vs {losses0[False]:.6g} (rel "
+          f"{dloss:.3g}), gradient rel-L2 {grads_s}, occlusion-mask pixels "
+          f"that differ {mask_diff} of {masks[True].numel()}; 4 Adam steps "
+          f"losses {trail}, loss on batch 0 {before_loss:.6g} -> "
+          f"{after_loss:.6g}; launches per step (correlation fwd, bwd) "
+          f"{want[:2]}, over the 4 steps {counted}, no other kernel; val EPE "
+          f"{epe:.4f} (2 batches); ms per step, median of 4 turns of 3 "
+          f"steps: kernel {ms[True]:.3f} ({fps[True]:.2f} pairs/s), plain "
+          f"{ms[False]:.3f} ({fps[False]:.2f}); the turns: kernel "
+          f"{', '.join(f'{x:.3f}' for x in t[True])}, plain "
+          f"{', '.join(f'{x:.3f}' for x in t[False])}; split forward, loss, "
+          f"backward, Adam ms: "
+          f"kernel {sp[True]}, plain {sp[False]}; peak memory GiB kernel "
+          f"{peak[True]:.3f}, plain {peak[False]:.3f}; AR step B=2: "
+          f"launches {ar_got[:2]}, loss {ar_loss.item():.5g}, l_atst "
+          f"{ar_terms['l_atst'].item():.5g}, l_ot "
+          f"{ar_terms['l_ot'].item():.5g} [{card}]", flush=True)
+    return counted
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1072,11 +1423,13 @@ def main() -> int:
         print(f"phase 2: {os.path.relpath(lib.path, ROOT)} {how}",
               flush=True)
         rows = phase_kernels(card)
+        rows.update(phase_kernels_flow(card))
         phase_server(card)
         phase_flagship(card)
         launches = phase_train(card)
         phase_tail(card)
         lc_launches = phase_lc_train(card)
+        flow_launches = phase_flow(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1099,10 +1452,22 @@ def main() -> int:
             ("tap_combine", ("tap_combine", 32), "tap_combine.cu",
              "depthestimation_tpu/ops/combine_pallas.py:63"),
             ("tap_combine_bwd", ("tap_combine_bwd", 32), "tap_combine.cu",
-             "depthestimation_tpu/ops/combine_pallas.py:63")):
+             "depthestimation_tpu/ops/combine_pallas.py:63"),
+            ("correlation", ("correlation", 32), "correlation.cu",
+             "depthestimation_tpu/ops/correlation.py:64"),
+            ("correlation_bwd", ("correlation_bwd", 32), "correlation.cu",
+             "depthestimation_tpu/ops/correlation.py:64"),
+            ("conv3d_flat", ("conv3d_flat", "bfloat16"), "conv3d_flat.cu",
+             "depthestimation_tpu/ops/conv3d_pallas.py:114"),
+            ("conv3d_flat_dw", ("conv3d_flat_dw", "bfloat16"),
+             "conv3d_flat.cu",
+             "depthestimation_tpu/ops/conv3d_pallas.py:173")):
         # each kernel's launches on the path that runs it: the train step
-        # (phase 6), or the LC-on step on the flat route (phase 8)
-        counted = lc_launches if name.startswith("tap_") else launches
+        # (phase 6), the LC-on step on the flat route (phase 8), or the
+        # flow trainer's 4 steps (phase 9; the conv3d op is an op-level
+        # entry that no path calls, so 0)
+        counted = (lc_launches if name.startswith("tap_") else
+                   flow_launches if name in FLOW_COUNT_NAMES else launches)
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": counted[name],
                         **rows[key]})

@@ -2,8 +2,8 @@
 
 The JAX blocks work on one item and ``BaseLoss`` vmaps them; here each
 block takes a leading batch axis and returns one value per item ([B]),
-the vmapped result. ``ternary_loss`` and ``ssim`` belong to the flow loss
-and are not ported yet.
+the vmapped result. ``ternary_loss`` and ``ssim``, the flow loss's blocks,
+return maps as their JAX counterparts do.
 
 Ties are common here (both camera sides of a step may see the same frame,
 so a warped depth can equal the target depth exactly, and neighbouring
@@ -127,3 +127,51 @@ def edge_aware_smoothness_loss(depth, rgb):
     sx = _abs(gx(depth)) * wx
     sy = _abs(gy(depth)) * wy
     return sx.mean(dim=(1, 2)) + sy.mean(dim=(1, 2))
+
+
+def ternary_loss(im: torch.Tensor, im_warp: torch.Tensor,
+                 max_distance: int = 1) -> torch.Tensor:
+    """Census / ternary-transform distance (after UnFlow). im, im_warp [B,
+    3, H, W] RGB in [0, 1] -> [B, 1, H, W], zero on the ``max_distance``
+    border."""
+    md = max_distance
+    k = 2 * md + 1
+
+    def census(img):
+        g = (img[:, 0] * 0.2989 + img[:, 1] * 0.5870
+             + img[:, 2] * 0.1140)[:, None] * 255.0
+        pad = torch.nn.functional.pad(g, (md, md, md, md))
+        h, w = g.shape[-2:]
+        patches = torch.cat([pad[:, :, dy:dy + h, dx:dx + w]
+                             for dy in range(k) for dx in range(k)], dim=1)
+        diff = patches - g
+        return diff / torch.sqrt(0.81 + diff * diff)
+
+    d = (census(im) - census(im_warp)) ** 2
+    dist = (d / (0.1 + d)).mean(dim=1, keepdim=True)
+    h, w = im.shape[-2:]
+    mask = torch.zeros((1, 1, h, w), dtype=im.dtype, device=im.device)
+    mask[..., md:h - md, md:w - md] = 1.0
+    return dist * mask
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor, md: int = 1) -> torch.Tensor:
+    """SSIM distance map of x, y [C, H, W] -> [C, H - 2 md, W - 2 md]:
+    means and (co)variances over (2 md + 1)^2 windows, a 'valid' box
+    convolution as JAX's ``convolve2d``."""
+    k = 2 * md + 1
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    win = torch.full((x.shape[0], 1, k, k), 1.0 / (k * k), dtype=x.dtype,
+                     device=x.device)
+
+    def pool(t):
+        return torch.nn.functional.conv2d(t[None], win,
+                                          groups=t.shape[0])[0]
+
+    mu_x, mu_y = pool(x), pool(y)
+    sig_x = pool(x * x) - mu_x ** 2
+    sig_y = pool(y * y) - mu_y ** 2
+    sig_xy = pool(x * y) - mu_x * mu_y
+    num = (2 * mu_x * mu_y + c1) * (2 * sig_xy + c2)
+    den = (mu_x ** 2 + mu_y ** 2 + c1) * (sig_x + sig_y + c2)
+    return _clip((1 - num / den) / 2, 0.0, 1.0)

@@ -11,7 +11,10 @@ def get_loss(cfg, id: int = 0):
         return BaseLoss(cfg, id)
     if name == "default":
         return DefaultLoss(cfg, id)
-    if name in ("sweep", "unflow"):
+    if name == "unflow":
+        from depthestimation_tpu_torch.losses.flow_loss import UnFlowLoss
+        return UnFlowLoss(cfg, id)
+    if name == "sweep":
         raise NotImplementedError(
             f"loss {name!r} is not ported yet (ROADMAP.md, queue 1)")
     raise ValueError(f"unknown loss {name!r}")

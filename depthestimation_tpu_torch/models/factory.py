@@ -4,16 +4,21 @@ from __future__ import annotations
 
 import torch
 
+from depthestimation_tpu_torch.models import pwclite
 from depthestimation_tpu_torch.models.base_model import BaseModelNet
 from depthestimation_tpu_torch.models.layers import init_weights
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def get_model(cfg, device="cuda", seed: int | None = None) -> BaseModelNet:
+def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
     """Build ``cfg.data.model_name`` on ``device`` (the card unless the
     caller names the CPU; without a card the default raises) in eval mode
     (``.train()`` switches to the train-mode forward).
+
+    ``"pwclite"`` is ``PWCLite()`` with its defaults, as in JAX (2 frames,
+    the reduced estimator, search range 4, output level 4, f32; its
+    ``use_kernels`` routes the correlation).
 
     The compute dtype is ``tpu.dtype``; ``tpu.convbn2d``,
     ``tpu.convcomb_pallas`` and ``tpu.combine_pallas`` (each "auto" by
@@ -24,6 +29,12 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> BaseModelNet:
     it; without, they are left for ``load_state_dict``.
     """
     name = cfg.data.model_name
+    if name == "pwclite":
+        model = pwclite.PWCLite()
+        if seed is not None:
+            pwclite.init_weights(model,
+                                 torch.Generator().manual_seed(int(seed)))
+        return model.to(device).eval()
     if name != "base":
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, queue 1)")

@@ -3,7 +3,8 @@
 Port of ``depthestimation_tpu/ops/resample.py``: ``fast_take`` (the
 gather behind the plane sweep's 4-tap bilinear sampling),
 ``_unnormalize``, ``grid_sample``, ``hwarp``, ``static_row_resample``,
-``resize_bilinear_align_corners`` and ``shift_rows``. Geometry matches the
+``grid_sample_pixel``, ``resize_bilinear_align_corners`` and
+``shift_rows``. Geometry matches the
 JAX functions exactly (zero padding, the same index and weight formulas).
 ``grid_sample`` and ``hwarp`` take a leading batch axis (the JAX per-item
 functions vmapped). Two helpers stand in for JAX functions torch lacks:
@@ -180,6 +181,19 @@ def static_row_resample(img: torch.Tensor, mode: str = "bilinear",
     i0 = torch.clamp(y0.long() + 1, 0, h + 1)
     return (pad.index_select(-2, i0) * (1.0 - fy)
             + pad.index_select(-2, torch.clamp(i0 + 1, 0, h + 1)) * fy)
+
+
+def grid_sample_pixel(img: torch.Tensor, pix: torch.Tensor,
+                      mode: str = "bilinear") -> torch.Tensor:
+    """Sample img [B, C, H, W] at PIXEL coordinates pix [B, ..., 2] (x, y)
+    with zero padding -> [B, C, ...]. Rounds through the normalized
+    coordinates (``align_corners=True``) as the JAX function does, so the
+    two round alike."""
+    h, w = img.shape[-2], img.shape[-1]
+    x = pix[..., 0] * (2.0 / max(w - 1, 1)) - 1.0
+    y = pix[..., 1] * (2.0 / max(h - 1, 1)) - 1.0
+    return grid_sample(img, torch.stack([x, y], dim=-1), mode=mode,
+                       align_corners=True)
 
 
 def resize_bilinear_align_corners(img: torch.Tensor, out_hw) -> torch.Tensor:

@@ -563,3 +563,183 @@ def test_planner_on_the_card_gives_the_cpu_design_points(dev, max_alpha):
         pts[str(d)] = planner.get_design_points(
             torch.from_numpy(field).to(d)).cpu()
     assert torch.equal(pts["cpu"], pts[str(dev)])
+
+
+# ---- correlation (csrc/correlation.cu) and the flat conv3d op
+#      (csrc/conv3d_flat.cu), and a flow train step on the card
+
+from depthestimation_tpu_torch.ops import conv3d_kernel as c3  # noqa: E402
+from depthestimation_tpu_torch.ops import correlation as cr  # noqa: E402
+from depthestimation_tpu_torch.ops import correlation_kernel as crk  # noqa: E402,E501
+
+# (B, C, H, W, md): odd sizes, tiles cut at both edges, PWCLite's coarsest
+# level, a search range below 4, fewer channels than a chunk
+_CORR_SHAPES = [(2, 8, 11, 13, 4), (1, 192, 6, 13, 4), (3, 32, 20, 40, 2),
+                (2, 16, 9, 70, 1), (1, 5, 3, 5, 3)]
+
+
+@pytest.mark.parametrize("b,c,h,w,md", _CORR_SHAPES)
+def test_correlation_kernels_match_plain(dev, b, c, h, w, md):
+    """Forward and backward within 1e-5 max|plain| (f32 sums in another
+    order)."""
+    gen = torch.Generator().manual_seed(b + c + h + md)
+    x1 = _randn(gen, b, c, h, w).to(dev)
+    x2 = _randn(gen, b, c, h, w).to(dev)
+    g = _randn(gen, b, (2 * md + 1) ** 2, h, w).to(dev)
+    before = (crk.correlate.launches, crk.correlate.bwd_launches)
+    out = crk.correlate(x1, x2, md)
+    dx1, dx2 = crk.correlate_bwd(x1, x2, g, md)
+    torch.cuda.synchronize()
+    assert (crk.correlate.launches, crk.correlate.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = cr.correlation_batched(x1, x2, md)
+    assert out.shape == want.shape and out.dtype == torch.float32
+    for got, ref in ((out, want),) + tuple(zip(
+            (dx1, dx2), cr.correlation_bwd_plain(x1, x2, g, md))):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+def test_correlation_autograd_runs_the_backward_kernel(dev):
+    gen = torch.Generator().manual_seed(5)
+    x1 = _randn(gen, 2, 16, 12, 20).to(dev).requires_grad_()
+    x2 = _randn(gen, 2, 16, 12, 20).to(dev).requires_grad_()
+    g = _randn(gen, 2, 81, 12, 20).to(dev)
+    before = crk.correlate.bwd_launches
+    crk.correlate(x1, x2).backward(g)
+    torch.cuda.synchronize()
+    assert crk.correlate.bwd_launches == before + 1
+    p1 = x1.detach().clone().requires_grad_()
+    p2 = x2.detach().clone().requires_grad_()
+    cr.correlation_batched(p1, p2).backward(g)
+    for a, b in ((x1.grad, p1.grad), (x2.grad, p2.grad)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+def test_correlation_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 4, 6, 8, device=dev)
+    with pytest.raises(TypeError):                 # bf16: f32 only
+        crk.correlate(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError):                # md 5: 1 to 4 only
+        crk.correlate(x, x, 5)
+    with pytest.raises(ValueError):                # not contiguous
+        crk.correlate(x.transpose(2, 3), x.transpose(2, 3))
+    with pytest.raises(ValueError):                # shapes differ
+        crk.correlate(x, x[:, :3].contiguous())
+    with pytest.raises(ValueError):                # g of the wrong md
+        crk.correlate_bwd(x, x, torch.zeros(1, 25, 6, 8, device=dev))
+
+
+# (N, depth, C, F, H, W): chunks cut in C and F, tiles cut at both edges,
+# depth 1 (both depth edges on every row), F = 3, Base3D's layer
+_C3_SHAPES = [(16, 8, 32, 32, 16, 24), (6, 3, 5, 40, 7, 9),
+              (4, 4, 20, 3, 33, 37), (2, 1, 8, 8, 5, 6),
+              (64, 64, 32, 32, 64, 96)]
+
+
+@pytest.mark.parametrize("n,depth,c,f,h,w", _C3_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_kernels_match_plain(dev, n, depth, c, f, h, w, dtype):
+    """Forward, dx (the forward kernel over the flipped weight) and dW
+    against the plain versions: f32 within 1e-4 max|plain|; bf16 y and dx
+    (taps rounded to bf16) within 2^-6 max|plain|, dW (f32 sums) 1e-3."""
+    gen = torch.Generator().manual_seed(n + c + f + h)
+    x = _randn(gen, n, c, h, w).to(dev, dtype)
+    wt = _randn(gen, f, c, 3, 3, 3, scale=0.1).to(dev)
+    dy = _randn(gen, n, f, h, w, scale=0.1).to(dev, dtype)
+    before = (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches)
+    y = c3.conv3d_flat_fwd(x, wt, depth)
+    dx = c3.conv3d_flat_fwd(dy, c3.flip_weight(wt), depth)
+    dw = c3.conv3d_flat_dw(x, dy, depth)
+    torch.cuda.synchronize()
+    assert (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches) == (
+        before[0] + 2, before[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for got, ref in ((y, c3.conv3d_flat_plain(x, wt, depth)),
+                     (dx, c3.conv3d_flat_plain(dy, c3.flip_weight(wt),
+                                               depth))):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=tol * ref.float().abs().max().item())
+    ref = c3.conv3d_flat_dw_plain(x, dy, depth)
+    assert dw.dtype == torch.float32 and dw.shape == wt.shape
+    torch.testing.assert_close(dw, ref, rtol=0, atol=(
+        1e-4 if dtype == torch.float32 else 1e-3) * ref.abs().max().item())
+
+
+def test_conv3d_autograd_runs_the_kernels(dev):
+    gen = torch.Generator().manual_seed(6)
+    x = _randn(gen, 8, 6, 10, 12).to(dev).requires_grad_()
+    wt = _randn(gen, 5, 6, 3, 3, 3, scale=0.2).to(dev).requires_grad_()
+    g = _randn(gen, 8, 5, 10, 12).to(dev)
+    before = (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches)
+    c3.conv3d_flat(x, wt, 4).backward(g)
+    torch.cuda.synchronize()
+    assert (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches) == (
+        before[0] + 2, before[1] + 1)
+    xp = x.detach().clone().requires_grad_()
+    wp = wt.detach().clone().requires_grad_()
+    c3.conv3d_flat_plain(xp, wp, 4).backward(g)
+    for a, b in ((x.grad, xp.grad), (wt.grad, wp.grad)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * b.abs().max().item())
+
+
+def test_conv3d_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(8, 4, 5, 6, device=dev)
+    wt = torch.zeros(3, 4, 3, 3, 3, device=dev)
+    with pytest.raises(TypeError):                 # f16
+        c3.conv3d_flat(x.half(), wt, 4)
+    with pytest.raises(ValueError):                # rows not a multiple of D
+        c3.conv3d_flat(x, wt, 3)
+    with pytest.raises(ValueError):                # weight's C is not x's
+        c3.conv3d_flat(x, wt[:, :3], 4)
+    with pytest.raises(ValueError):                # not contiguous
+        c3.conv3d_flat(x.transpose(2, 3), wt, 4)
+    with pytest.raises(ValueError):                # dy of another dtype
+        c3.conv3d_flat_dw(x, torch.zeros(8, 3, 5, 6, device=dev).bfloat16(),
+                          4)
+
+
+def test_flow_train_step_through_the_correlation_kernels(dev):
+    """One SintelTrainer step on the card (PWCLite at output level 2,
+    64x64, B=2): 3 correlation launches per two-frame pass forward, 6 in
+    all, and 3 backward: the backward flows reach the loss only through
+    the occlusion mask, a comparison, so no gradient runs through their
+    pass (JAX's is zero there too). The loss and gradients of the kernel
+    path against the plain path (f32 both): loss 1e-4 relative, gradient
+    rel-L2 1e-3."""
+    from depthestimation_tpu_torch.config import load_config
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models.pwclite import PWCLite, init_weights
+    from depthestimation_tpu_torch.trainer.factory import get_trainer
+    from depthestimation_tpu_torch.trainer.sintel import (
+        synthetic_flow_batches)
+    from depthestimation_tpu_torch.utils.logger import init_logger
+
+    cfg = load_config("configs/sintel_flow.json")
+    data = synthetic_flow_batches(1, batch=2, h=64, w=64)[0]
+    base = PWCLite(output_level=2)
+    init_weights(base, torch.Generator().manual_seed(0))
+    losses, grads = {}, {}
+    for kernels in (True, False):
+        model = PWCLite(output_level=2).to(dev)
+        model.load_state_dict(base.state_dict())
+        model.use_kernels = kernels
+        tr = get_trainer(cfg)(0, model, get_loss(cfg), init_logger(), "",
+                              cfg)
+        before = (crk.correlate.launches, crk.correlate.bwd_launches)
+        loss, _ = tr._step(tr._img_pair(data))
+        torch.cuda.synchronize()
+        got = (crk.correlate.launches - before[0],
+               crk.correlate.bwd_launches - before[1])
+        assert got == ((6, 3) if kernels else (0, 0))
+        losses[kernels] = loss.item()
+        grads[kernels] = torch.cat([p.grad.flatten()
+                                    for p in model.parameters()])
+    assert np.isfinite(losses[True])
+    assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
+    dist = (torch.linalg.vector_norm(grads[True] - grads[False])
+            / torch.linalg.vector_norm(grads[False])).item()
+    assert dist <= 1e-3, dist
