@@ -17,7 +17,10 @@ Phases, one line each (a failed phase exits non-zero before the result):
    library call's where one computes the same function (cuDNN's conv),
    and the bound (bytes over 3.35 TB/s or operations over the peak of
    their type, 989 bf16 tensor-core TFLOP/s or 67 f32 TFLOP/s, whichever
-   is larger); the correlation pair at the five pyramid levels of phase 9,
+   is larger); each backward of the two fused conv blocks twice, bit-equal,
+   with its device time split into the data and the weight gradient
+   (``conv_bwd_split.kernel_split``, ``torch.profiler``); the correlation
+   pair at the five pyramid levels of phase 9,
    and the flat conv3d op (forward, dx, dW) at Base3D's layer shape in
    bf16 and f32 beside cuDNN's conv3d and the port's flat ``Conv3d``;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
@@ -55,7 +58,10 @@ Phases, one line each (a failed phase exits non-zero before the result):
 9. flow training (``configs/sintel_flow.json``: PWCLite, UnFlowLoss,
    SintelTrainer; f32, no TF32) at 384x832, B=8, on synthetic pairs:
    one step's loss and gradients through the correlation kernels against
-   the plain path; 4 Adam steps through ``_run_one_epoch`` (loss finite
+   the plain path, and one trainer step with TF32 switched on globally
+   held to the same bounds (the entry points scope it off; the same step
+   without the scope is recorded); 4 Adam steps through ``_run_one_epoch``
+   (loss finite
    and lower after them; per step 10 correlation launches forward and 5
    backward, the backward flows' pass taking no gradient, and no other
    kernel of the port); ms per step in 8 turns of the kernel and plain
@@ -70,6 +76,7 @@ Then it prints the kernels' JSON line, the card line, and as its last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -214,6 +221,7 @@ def _conv_bwd(g, u, w):
 def phase_kernels(card):
     import torch
     import torch.nn.functional as F
+    from conv_bwd_split import kernel_split
     from depthestimation_tpu_torch.ops.combine_kernel import (
         tap_combine, tap_combine_bwd, tap_combine_bwd_plain,
         tap_combine_plain)
@@ -353,7 +361,11 @@ def phase_kernels(card):
             gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
             bargs = (x, wm, a, b, y, gy, gs, 64, h, w, relu)
             got = convbn_block_bwd(*bargs)
+            again = convbn_block_bwd(*bargs)
             torch.cuda.synchronize()
+            check(all(torch.equal(g1, g2) for g1, g2 in zip(got, again)),
+                  f"convbn_block backward N={n} C={c} F={f}: two launches "
+                  f"differ")
             want = convbn_block_bwd_plain(*bargs)
             v = x.float() * a[None, :, None] + b[None, :, None]
             inner = v.abs() > 0.02 if relu else torch.ones_like(v, dtype=bool)
@@ -382,9 +394,13 @@ def phase_kernels(card):
                            4.0 * n * h * w * 3 * f * 9 * c)
                 rows[("convbn_block_bwd", c, f)] = row(max(errs), ms,
                                                        plain_ms, lib_ms, bd)
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"cuDNN conv3d backward {lib_ms:.4f} ms, bound "
-                         f"{bd[0]:.4f} ms ({bd[1]}) [{card}]")
+                sp = kernel_split(lambda: convbn_block_bwd(*bargs))
+                line += (f"; bit-equal over two launches; kernel {ms:.4f} "
+                         f"ms (device split: dx + (da, db) "
+                         f"{sp['dx_ms']:.4f}, dW {sp['dw_ms']:.4f}), plain "
+                         f"{plain_ms:.4f} ms, cuDNN conv3d backward "
+                         f"{lib_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}) "
+                         f"[{card}]")
             print(line, flush=True)
 
     # convbn2d at the train step's shapes (B=8): the encoder's stem and
@@ -420,7 +436,11 @@ def phase_kernels(card):
             gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
             bargs = (x, wt, a, b, y_p, gy, gs, act)
             got = convbn2d_block_bwd(*bargs)
+            again = convbn2d_block_bwd(*bargs)
             torch.cuda.synchronize()
+            check(all(torch.equal(g1, g2) for g1, g2 in zip(got, again)),
+                  f"convbn2d backward {tag} act={act}: two launches differ")
+            del again
             want = convbn2d_block_bwd_plain(*bargs)
             v = x.float() * a[None, :, None, None] + b[None, :, None, None]
             inner = (v.abs() > 0.02 if act != "none"
@@ -460,10 +480,14 @@ def phase_kernels(card):
                             2.0 * flops)
                 rows[("convbn2d_bwd", tag)] = row(max(errs), bms, bplain_ms,
                                                   blib_ms, bbd)
+                sp = kernel_split(lambda: convbn2d_block_bwd(*bargs))
                 line += (f"; forward kernel {ms:.4f} ms, plain "
                          f"{plain_ms:.4f} ms, cuDNN conv2d {lib_ms:.4f} ms, "
-                         f"bound {bd[0]:.4f} ms ({bd[1]}); backward kernel "
-                         f"{bms:.4f} ms, plain {bplain_ms:.4f} ms, cuDNN "
+                         f"bound {bd[0]:.4f} ms ({bd[1]}); backward "
+                         f"bit-equal over two launches, kernel {bms:.4f} ms "
+                         f"(device split: dx + (da, db) {sp['dx_ms']:.4f}, "
+                         f"dW {sp['dw_ms']:.4f}), plain {bplain_ms:.4f} ms, "
+                         f"cuDNN "
                          f"conv2d backward {blib_ms:.4f} ms, bound "
                          f"{bbd[0]:.4f} ms ({bbd[1]}) [{card}]")
             print(line, flush=True)
@@ -1280,6 +1304,34 @@ def phase_flow(card):
         check(d <= 1e-3, f"flow step: {g} gradient rel-L2 {d:.4g} > 1e-3")
     mask_diff = int((masks[True] != masks[False]).sum().item())
 
+    # cuDNN's and cuBLAS's TF32 on globally, as PyTorch leaves cuDNN by
+    # default: the trainer's step scopes both off (utils/precision.py), so
+    # its loss and gradients stay within the f32 bounds of the plain step;
+    # then the same step with the scope taken out, recorded unchecked
+    from depthestimation_tpu_torch.utils import precision
+    tf32 = {}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    scoped = precision.no_tf32
+    try:
+        for name in ("scoped", "unscoped"):
+            if name == "unscoped":
+                precision.no_tf32 = contextlib.nullcontext
+            m = copy.deepcopy(base)
+            loss, _ = trainer(m)._step(pair0)
+            g = _flow_groups(m)
+            tf32[name] = (abs(loss.item() - losses0[False])
+                          / abs(losses0[False]),
+                          max(_dist(g[k], grads[False][k]) for k in g))
+            del m, g
+    finally:
+        precision.no_tf32 = scoped
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(tf32["scoped"][0] <= 1e-4 and tf32["scoped"][1] <= 1e-3,
+          f"flow step with TF32 on globally: loss rel {tf32['scoped'][0]:.3g}"
+          f", gradient rel-L2 {tf32['scoped'][1]:.3g} (bounds 1e-4, 1e-3)")
+
     # the main path: 4 Adam steps through the trainer's epoch loop, counted
     model = copy.deepcopy(base)
     tr = trainer(model)
@@ -1381,7 +1433,11 @@ def phase_flow(card):
           f"(synthetic pairs made in {data_s:.1f} s): kernel vs plain one "
           f"step: loss {losses0[True]:.6g} vs {losses0[False]:.6g} (rel "
           f"{dloss:.3g}), gradient rel-L2 {grads_s}, occlusion-mask pixels "
-          f"that differ {mask_diff} of {masks[True].numel()}; 4 Adam steps "
+          f"that differ {mask_diff} of {masks[True].numel()}; TF32 on "
+          f"globally, trainer step vs the plain f32 step: loss rel "
+          f"{tf32['scoped'][0]:.3g}, largest gradient rel-L2 "
+          f"{tf32['scoped'][1]:.3g} (without the scope: "
+          f"{tf32['unscoped'][0]:.3g}, {tf32['unscoped'][1]:.3g}); 4 Adam steps "
           f"losses {trail}, loss on batch 0 {before_loss:.6g} -> "
           f"{after_loss:.6g}; launches per step (correlation fwd, bwd) "
           f"{want[:2]}, over the 4 steps {counted}, no other kernel; val EPE "

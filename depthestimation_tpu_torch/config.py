@@ -3,10 +3,15 @@
 Port of ``depthestimation_tpu/config.py`` (same schema, same defaults), so
 the port reads every file under ``configs/``. Of the ``tpu`` section the
 port honours ``tpu.dtype``, ``tpu.convbn2d`` (the fused 2D ConvBN routes),
-``tpu.convcomb_pallas`` (the fused or the flat Base3D stack) and
-``tpu.combine_pallas`` (the flat stack's depth-tap combine kernel); see
-``models/base_model.py``. The TPU-only knobs ``remat``, ``sweep_pallas``
-and ``mesh`` are accepted and have no effect (see ``IGNORED_TPU_KEYS``).
+``tpu.convcomb_pallas`` (the fused or the flat Base3D stack),
+``tpu.combine_pallas`` (the flat stack's depth-tap combine kernel),
+``tpu.sweep_dtype`` (the sweep's compute dtype) and ``tpu.conv3d_flat``
+(False: JAX's 5-D Base3D route, the port's flat stack), and of ``var``
+also ``diffhomo`` (False: no sweep); see ``models/base_model.py``. The
+TPU-only knobs ``remat``, ``sweep_pallas`` and ``mesh`` are accepted and
+have no effect (see ``IGNORED_TPU_KEYS``). ``donate`` is a default that
+neither package reads; ``scan_train``, ``scan_eval`` and ``scan_chunk``
+belong to the JAX depth trainer, which the port does not have yet.
 """
 
 from __future__ import annotations

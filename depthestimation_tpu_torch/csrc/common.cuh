@@ -36,6 +36,14 @@ __device__ inline void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
+// the same at the shared-memory address ``a``
+__device__ inline void ldmatrix_x4_addr(unsigned (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 // the same, transposed, at the shared-memory address ``a``
 __device__ inline void ldmatrix_x4_trans(unsigned (&r)[4], unsigned a) {
   asm volatile(
@@ -52,6 +60,19 @@ __device__ inline void mma_16816(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// resident blocks of ``kernel`` per SM at this launch shape, and the SMs
+template <typename Kernel>
+inline cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem,
+                                 int* per_sm, int* n_sm) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace de

@@ -36,35 +36,34 @@
 // tiles): the weights take at most 116 KB, two blocks per SM at C = F = 64.
 //
 // Backward (convbn2d_bwd), with ge = bf16(gy + s0 + 2 y s1) folding the
-// statistics' cotangent (s0, s1) into gy, folded on load wherever ge is
-// read (it never exists in device memory):
+// statistics' cotangent (s0, s1) into gy, written once by a fold pass
+// (conv_bwd.cuh) and read by both gradients:
 //   du  = the transposed 3x3 conv of ge          products summed in f32
 //   dv  = du masked by act' on the f32 pre-activation v = x a + b
 //   dx  = bf16(dv a),  da = sum dv x,  db = sum dv
 //   dW  = sum over pixels of ge (x) im2col(u)    f32, u rebuilt from x
-// The data gradient is this file's forward kernel instantiated with kBwd:
-// ge in place of u, the flipped and transposed weights [C, 9F], and an
-// epilogue that writes dx and per-block (da, db) partials. The weight
-// gradient is a GEMM of M = F, N = 9C over every pixel: each 512-thread
-// block keeps its share of the [F, 9C] sums in registers across a grid-
-// stride walk over 4x16-pixel units (the shared-memory addresses of its
-// products computed once, outside the unit loop), blockIdx.y splits the
-// (m16, n16) output tiles when they are more than one block holds, and a
-// second pass adds the blocks' partials in a fixed order (no atomics).
-// The TPU's seam dW (_xla_seam_dw, f32 u and ge) has no counterpart: the
-// halo carries the neighbouring rows, with bf16 operands everywhere.
+// Bound: at 64x96, C = F = 64, N = 16 the two GEMMs are 14.5 GFLOP, 0.015
+// ms on the tensor cores, against 0.015 ms for the bytes of x, y, gy and
+// dx: a kernel at the card's balance point, so both the products and the
+// operand building have to be cheap. Design (see the backward section):
+// both GEMMs on wgmma (wgmma.cuh), the shifted operand in registers from a
+// halo tile, the regular one in shared memory; each kernel reads W in the
+// module's own [F, C, 3, 3] layout and dW's second pass writes it, so the
+// wrapper packs nothing. The TPU's seam dW (_xla_seam_dw, f32 u and ge)
+// has no counterpart: the halo carries the neighbouring rows, with bf16
+// operands everywhere. Partial sums per block, added in a fixed order: no
+// atomics, so the gradients repeat bit for bit.
 
 #include <algorithm>
 
 #include "common.cuh"
 #include "reduce.cuh"
+#include "conv_bwd.cuh"
+#include "wgmma.cuh"
 
 using de::bf16;
-using de::dw_reduce_kernel;
 using de::ldmatrix_x4;
-using de::ldmatrix_x4_trans;
 using de::mma_16816;
-using de::smem_addr;
 using de::stats_reduce_kernel;
 
 namespace {
@@ -77,42 +76,19 @@ constexpr int kHalo = (kTH + 2) * kHaloW;  // 180 halo pixels
 constexpr int kNT = 4;                     // n8 pixel tiles per warp
 constexpr int kMaxMT = 5;                  // m16 row tiles: C, F <= 80
 
-constexpr int kActNone = 0, kActRelu = 1, kActLeaky = 2;
+using de::act_bwd;
+using de::act_fwd;
+using de::affine;
+using de::kActLeaky;
+using de::kActNone;
 
-__device__ inline float act_fwd(float v, int act) {
-  if (act == kActRelu) return fmaxf(v, 0.0f);
-  if (act == kActLeaky) return v >= 0.0f ? v : 0.01f * v;
-  return v;
-}
-
-// the gradient through act at the f32 pre-activation v (relu: v > 0;
-// leaky: slope 1 at v >= 0, as convbn2d_pallas.py:306-311)
-__device__ inline float act_bwd(float g, float v, int act) {
-  if (act == kActRelu) return v > 0.0f ? g : 0.0f;
-  if (act == kActLeaky) return v >= 0.0f ? g : 0.01f * g;
-  return g;
-}
-
-// v = x * a + b rounded after each step, as the plain version computes it
-__device__ inline float affine(float x, float a, float b) {
-  return __fadd_rn(__fmul_rn(x, a), b);
-}
-
-// kBwd = false: the forward layer. ``in`` = x [N, K, HW] (K = C), (ka, kb)
-// = the layer's (a, b), wk [MT*16, 9*Kp] (index s*Kp + k, s = kh*3 + kw);
-// ``out`` = y [N, M, HW] (M = F), ``partials`` [M, gridDim.x, 2] = per-block
-// (sum y, sum y^2).
-// kBwd = true: the data gradient. ``in`` = gy, ``in_y`` = y [N, K, HW]
-// (K = F), (ka, kb) = (s0, s1), folded on load into ge; wk = the flipped,
-// transposed weights [MT*16, 9*Kp] (wk[c, s*Kp + f] = W[f, c, 8 - s]);
-// ``out`` = dx [N, M, HW] (M = C) from du and the layer's input ``xo``
-// with its (a, b) and act; ``partials`` = per-block (sum dv x, sum dv).
-template <int MT, bool kBwd>
+// The forward layer. x [N, C, HW] with the layer's (a, b) and act, wk
+// [MT*16, 9*Cp] (index s*Cp + c, s = kh*3 + kw); y [N, F, HW],
+// ``partials`` [F, gridDim.x, 2] = per-block (sum y, sum y^2).
+template <int MT>
 __global__ void __launch_bounds__(kThreads)
-convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
-                const float* __restrict__ ka, const float* __restrict__ kb,
-                const bf16* __restrict__ wk, const bf16* __restrict__ xo,
-                const float* __restrict__ a, const float* __restrict__ b,
+convbn2d_kernel(const bf16* __restrict__ in, const float* __restrict__ ka,
+                const float* __restrict__ kb, const bf16* __restrict__ wk,
                 bf16* __restrict__ out, float* __restrict__ partials, int K,
                 int Kp, int M, int h, int w, int act, int tiles_x, int units) {
   constexpr int Mp = MT * 16;
@@ -151,16 +127,6 @@ convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
   // this lane's accumulator elements: rows g and g+8, pixels q2, q2+1
   const int g = lane >> 2, q2 = (lane & 3) * 2;
 
-  // the epilogue's per-row (a, b) of the layer (kBwd)
-  float ra[MT][2], rb[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = mt * 16 + g + 8 * hh;
-      ra[mt][hh] = kBwd && m < M ? a[m] : 0.0f;
-      rb[mt][hh] = kBwd && m < M ? b[m] : 0.0f;
-    }
   float st[MT][2][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -179,12 +145,7 @@ convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
       float v = 0.0f;
       if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
         const size_t at = in0 + (size_t)c * HW + gy * w + gx;
-        const float xv = __bfloat162float(in[at]);
-        if constexpr (kBwd) {
-          v = __fadd_rn(xv + ka[c], 2.0f * __bfloat162float(in_y[at]) * kb[c]);
-        } else {
-          v = act_fwd(affine(xv, ka[c], kb[c]), act);
-        }
+        v = act_fwd(affine(__bfloat162float(in[at]), ka[c], kb[c]), act);
       }
       sU[hp * us + c] = __float2bfloat16(v);
     }
@@ -216,7 +177,7 @@ convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
       }
     }
 
-    // y (or dx) to global bf16, and the channel sums
+    // y to global bf16, and the channel sums
     const size_t out0 = (size_t)n * M * HW;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -232,27 +193,10 @@ convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
           const int m = mt * 16 + g + 8 * hh;
           if (m >= M) continue;
           const size_t at = out0 + (size_t)m * HW + gy * w + gx;
-          float v0 = acc[mt][j][2 * hh], v1 = acc[mt][j][2 * hh + 1];
-          float s0, s1, q0, q1;
-          if constexpr (kBwd) {
-            const float x0 = ok0 ? __bfloat162float(xo[at]) : 0.0f;
-            const float x1 = ok1 ? __bfloat162float(xo[at + 1]) : 0.0f;
-            v0 = act_bwd(v0, affine(x0, ra[mt][hh], rb[mt][hh]), act);
-            v1 = act_bwd(v1, affine(x1, ra[mt][hh], rb[mt][hh]), act);
-            s0 = v0 * x0;                    // (da, db) terms
-            s1 = v1 * x1;
-            q0 = v0;
-            q1 = v1;
-            v0 *= ra[mt][hh];                // dx = dv * a
-            v1 *= ra[mt][hh];
-          } else {
-            v0 = de::round_bf16(v0);         // stats of the bf16 y
-            v1 = de::round_bf16(v1);
-            s0 = v0;
-            s1 = v1;
-            q0 = v0 * v0;
-            q1 = v1 * v1;
-          }
+          // stats of the bf16 y
+          const float v0 = de::round_bf16(acc[mt][j][2 * hh]);
+          const float v1 = de::round_bf16(acc[mt][j][2 * hh + 1]);
+          const float s0 = v0, s1 = v1, q0 = v0 * v0, q1 = v1 * v1;
           bf16* dst = out + at;
           if (ok1 && !(w & 1)) {    // even w: the pair is 4-byte aligned
             *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -304,208 +248,221 @@ convbn2d_kernel(const bf16* __restrict__ in, const bf16* __restrict__ in_y,
   }
 }
 
-constexpr int kDwThreads = 512;
-constexpr int kDwWarps = kDwThreads / 32;
-constexpr int kDwPairs = 5;     // (m16, n16) output tiles per warp, at most
-constexpr int kDH = 4, kDW = 16;             // unit: 4 rows x 16 cols
-constexpr int kDHaloW = kDW + 2;
-constexpr int kDHalo = (kDH + 2) * kDHaloW;  // 108 halo pixels
-
-// Weight gradient, per-block partial sums:
-//   dW[f, s*Cp + c] = sum over images n and pixels p of
-//                     ge(n)[f, p] * u(n)[c, p + shift_s]
-// with ge = bf16(gy + s0 + 2 y s1) and u = bf16(act(x a + b)) rebuilt on
-// load (convbn2d_pallas.py:317-321). A GEMM of M = Fp, N = 9Cp over
-// K = every pixel: the (m16, n16) output tiles are split into gridDim.y
-// groups of ``per_split``; within a group, warp w takes tiles w, w + 16,
-// ...; each block walks (image, 4x16 tile) units in a grid-stride loop,
-// keeps its sums in the warps' accumulators and writes them once to
-// partials[blockIdx.x]; dw_reduce_kernel adds the blocks in a fixed order.
-// Operands: ge pixel-major in shared memory ([64][Mp]), the normalized halo
-// channels fastest; ldmatrix .trans reads both as mma.sync fragments, the
-// halo at each 3x3 shift.
-__global__ void __launch_bounds__(kDwThreads, 1)
-convbn2d_dw_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
-                   const float* __restrict__ s0, const float* __restrict__ s1,
-                   const bf16* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, float* __restrict__ partials,
-                   int N, int C, int Cp, int F, int Mp, int h, int w, int act,
-                   int tiles_x, int per_split) {
-  const int HW = h * w;
-  const int Np = 9 * Cp;
-  const int tiles = ((h + kDH - 1) / kDH) * tiles_x;
-  const int us = Cp + 8, gs = Mp + 8;   // row strides: +16 B, no conflicts
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nc16 = Np / 16;
-  const int pairs = (Mp / 16) * nc16;
-  const int base = blockIdx.y * per_split;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sU = reinterpret_cast<bf16*>(smem);                  // [kDHalo, us]
-  bf16* sG = sU + kDHalo * us;                                // [64, gs]
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < kDHalo * us + kDH * kDW * gs; i += kDwThreads)
-    sU[i] = zero;           // padding channels and rows stay zero
-
-  // this warp's tiles: q < nq (a prefix of q, since both bounds grow in q)
-  int nq = 0;
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q)
-    if (warp + q * kDwWarps < per_split && base + warp + q * kDwWarps < pairs)
-      nq = q + 1;
-
-  float acc[kDwPairs][2][4];
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.0f;
-
-  // ldmatrix row of this lane (matrix lane/8, row lane%8) for each tile,
-  // at unit row 0: A, the cotangent, at pixel a_k and m offset a_m; B, the
-  // halo at pixel b_k shifted by s = nc*16 / Cp, channel c0 + b_n. Unit row
-  // r adds r rows to both.
-  const int mat = lane >> 3, lrow = lane & 7;
-  const int a_k = lrow + (mat >> 1) * 8, a_m = (mat & 1) * 8;
-  const int b_k = lrow + (mat & 1) * 8, b_n = (mat >> 1) * 8;
-  unsigned a_addr[kDwPairs], b_addr[kDwPairs];
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q) {
-    const int pr = min(base + warp + q * kDwWarps, pairs - 1);
-    const int mt = pr / nc16, nc = pr - mt * nc16;
-    const int s = (nc * 16) / Cp, c0 = nc * 16 - s * Cp;
-    a_addr[q] = smem_addr(sG + a_k * gs + mt * 16 + a_m);
-    b_addr[q] = smem_addr(sU + ((s / 3) * kDHaloW + b_k + s % 3) * us + c0 +
-                          b_n);
-  }
-  const unsigned a_row = kDW * gs * sizeof(bf16);
-  const unsigned b_row = kDHaloW * us * sizeof(bf16);
-
-  const int units = N * tiles;
-  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const int n = unit / tiles, tile = unit - n * tiles;
-    const int ty0 = (tile / tiles_x) * kDH, tx0 = (tile % tiles_x) * kDW;
-    __syncthreads();                 // the last unit's products are done
-    const bf16* xn = x + (size_t)n * C * HW;
-    for (int i = threadIdx.x; i < C * kDHalo; i += kDwThreads) {
-      const int c = i / kDHalo, hp = i - c * kDHalo;
-      const int yy = hp / kDHaloW, xx = hp - yy * kDHaloW;
-      const int py = ty0 + yy - 1, px = tx0 + xx - 1;
-      float v = 0.0f;
-      if (py >= 0 && py < h && px >= 0 && px < w)
-        v = act_fwd(affine(__bfloat162float(xn[(size_t)c * HW + py * w + px]),
-                           a[c], b[c]), act);
-      sU[hp * us + c] = __float2bfloat16(v);
-    }
-    const size_t g0 = (size_t)n * F * HW;
-    for (int i = threadIdx.x; i < F * kDH * kDW; i += kDwThreads) {
-      const int f = i / (kDH * kDW), p = i - f * (kDH * kDW);
-      const int py = ty0 + p / kDW, px = tx0 + p % kDW;
-      float v = 0.0f;
-      if (py < h && px < w) {
-        const size_t at = g0 + (size_t)f * HW + py * w + px;
-        v = __fadd_rn(__bfloat162float(gy[at]) + s0[f],
-                      2.0f * __bfloat162float(y[at]) * s1[f]);
-      }
-      sG[p * gs + f] = __float2bfloat16(v);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kDH; ++r) {         // k16 step = unit row r
-#pragma unroll
-      for (int q = 0; q < kDwPairs; ++q) {
-        if (q >= nq) continue;
-        unsigned af[4], bfr[4];
-        ldmatrix_x4_trans(af, a_addr[q] + r * a_row);
-        ldmatrix_x4_trans(bfr, b_addr[q] + r * b_row);
-        mma_16816(acc[q][0], af, bfr[0], bfr[1]);
-        mma_16816(acc[q][1], af, bfr[2], bfr[3]);
-      }
-    }
-  }
-
-  // accumulator element e of n8 tile j: row g (+8 for e >= 2), column
-  // q2 (+1 for odd e)
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-  float* outp = partials + (size_t)blockIdx.x * Mp * Np;
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q) {
-    if (q >= nq) continue;
-    const int pr = base + warp + q * kDwWarps;
-    const int mt = pr / nc16, nc = pr - mt * nc16;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = mt * 16 + g + (e >> 1) * 8;
-        const int nn = nc * 16 + j * 8 + q2 + (e & 1);
-        outp[(size_t)m * Np + nn] = acc[q][j][e];
-      }
-  }
-}
-
-template <int MT, bool kBwd>
-cudaError_t launch_conv(const bf16* in, const bf16* in_y, const float* ka,
-                        const float* kb, const bf16* wk, const bf16* xo,
-                        const float* a, const float* b, bf16* out,
-                        float* partials, float* sums, int N, int K, int Kp,
-                        int M, int h, int w, int act, cudaStream_t s) {
-  const size_t smem = sizeof(bf16) * ((size_t)MT * 16 * (9 * Kp + 8) +
-                                      (size_t)kHalo * (Kp + 8)) +
+template <int MT>
+cudaError_t launch_fwd(const bf16* x, const float* a, const float* b,
+                       const bf16* wk, bf16* y, float* partials, float* sums,
+                       int N, int C, int Cp, int F, int h, int w, int act,
+                       cudaStream_t s) {
+  const size_t smem = sizeof(bf16) * ((size_t)MT * 16 * (9 * Cp + 8) +
+                                      (size_t)kHalo * (Cp + 8)) +
                       sizeof(float) * kWarps * MT * 16 * 2;
-  auto kernel = convbn2d_kernel<MT, kBwd>;
+  auto kernel = convbn2d_kernel<MT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, n_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0, n_sm = 0;
+  err = de::blocks_per_sm(kernel, kThreads, smem, &per_sm, &n_sm);
   if (err != cudaSuccess) return err;
   const int tiles_x = (w + kTW - 1) / kTW;
   const int units = N * ((h + kTH - 1) / kTH) * tiles_x;
   const int nblk = std::min(units, std::max(per_sm, 1) * n_sm);
-  kernel<<<nblk, kThreads, smem, s>>>(in, in_y, ka, kb, wk, xo, a, b, out,
-                                       partials, K, Kp, M, h, w, act,
-                                       tiles_x, units);
+  kernel<<<nblk, kThreads, smem, s>>>(x, a, b, wk, y, partials, C, Cp, F, h,
+                                       w, act, tiles_x, units);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  stats_reduce_kernel<<<M, 256, 0, s>>>(partials, sums, nblk);
+  stats_reduce_kernel<<<F, 256, 0, s>>>(partials, sums, nblk);
   return cudaGetLastError();
-}
-
-template <bool kBwd>
-cudaError_t dispatch_conv(int Mp, const bf16* in, const bf16* in_y,
-                          const float* ka, const float* kb, const bf16* wk,
-                          const bf16* xo, const float* a, const float* b,
-                          bf16* out, float* partials, float* sums, int N,
-                          int K, int Kp, int M, int h, int w, int act,
-                          cudaStream_t s) {
-  switch (Mp / 16) {
-#define DE_CASE(mt)                                                          \
-  case mt:                                                                   \
-    return launch_conv<mt, kBwd>(in, in_y, ka, kb, wk, xo, a, b, out,        \
-                                 partials, sums, N, K, Kp, M, h, w, act, s);
-    DE_CASE(1)
-    DE_CASE(2)
-    DE_CASE(3)
-    DE_CASE(4)
-    DE_CASE(5)
-#undef DE_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 bool bad_dims(int C, int Cp, int F, int Fp, int act) {
   return C < 1 || F < 1 || Cp % 16 || Cp < C || Cp > kMaxMT * 16 ||
          Fp % 16 || Fp < F || Fp > kMaxMT * 16 || act < kActNone ||
          act > kActLeaky;
+}
+
+// ---------------------------------------------------------------- backward
+//
+// Both gradients are GEMMs on the tensor cores through wgmma (wgmma.cuh),
+// with the operand that needs the 3x3 shift in registers (ldmatrix from a
+// halo tile: a shifted window of a 2-D tile is no core matrix) and the
+// regular one in shared memory:
+//   dx: M = 64 output pixels (one tile row of 16 per warp), N = Cp,
+//       K = 9 Fp; A = im2col(ge) from the ge halo, B = the flipped,
+//       transposed weights [9 Fp, Cp] (B[s*Fp + f][c] = W[f, c, 8 - s]),
+//       read from W's own [F, C, 3, 3] layout into shared memory once per
+//       block;
+//   dW: conv_bwd.cuh's conv_dw_kernel with one tap (M = 9 Cp, N = Fp).
+
+// Data gradient. ``NC`` = Cp, the wgmma N; ``NG`` = Fp / 16, the 16-channel
+// groups of K per shift (both constants, so that every register operand
+// of the products is known to the compiler). A block (one warpgroup) walks
+// 8x16-pixel tiles in a grid-stride loop: it stages the tile's ge halo
+// (10x18 pixels, Fp channels fastest) in shared memory, then per 3x3
+// shift s loads the A fragments of both 4-row halves (warp w: tile rows w
+// and w + 4) and issues their products; the shifts alternate two register
+// sets, so the loads of shift s + 1 overlap the products of shift s. The
+// epilogue masks du by act' on the f32 pre-activation of the layer's input
+// x, writes dx = bf16(dv a) and adds (sum dv x, sum dv) per channel into
+// the warp's own shared-memory row (a fixed order); ``partials`` [C,
+// gridDim.x, 2] gets the block's sums.
+template <int NC, int NG>
+__global__ void __launch_bounds__(kThreads)
+convbn2d_dx_kernel(const bf16* __restrict__ ge,
+                   const bf16* __restrict__ wt, const bf16* __restrict__ x,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   bf16* __restrict__ dx, float* __restrict__ partials, int C,
+                   int F, int h, int w, int act, int tiles_x, int units) {
+  const int HW = h * w;
+  const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int Fp = NG * 16;
+  const int K = 9 * Fp, us = Fp + 8;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sB = reinterpret_cast<bf16*>(smem);                  // [K, NC]
+  bf16* sU = sB + K * NC;                                     // [kHalo, us]
+  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);    // [4][NC][2]
+
+  const uint4 z4 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < (K * NC + kHalo * us) / 8; i += kThreads)
+    reinterpret_cast<uint4*>(sB)[i] = z4;
+  for (int i = threadIdx.x; i < kWarps * NC * 2; i += kThreads) sRed[i] = 0;
+  __syncthreads();
+  // W [F, C, 3, 3] -> B[(8 - r) * Fp + f][c]
+  const float inv_c9 = 1.0f / (C * 9);
+  de::for_each_bf16(wt, F * C * 9, [&](int i, unsigned short v) {
+    const int f = de::div_small(i, C * 9, inv_c9), rem = i - f * C * 9;
+    const int c = rem / 9, r = rem - c * 9;
+    sB[de::kmajor_off((8 - r) * Fp + f, c, NC)] = __ushort_as_bfloat16(v);
+  });
+  de::fence_proxy_async();
+
+  // ldmatrix rows: pixel p of the warp's tile row, channel half ch
+  const int p = (lane & 7) + ((lane >> 3) & 1) * 8, ch = (lane >> 4) * 8;
+  unsigned ab[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+    ab[t] = de::smem_addr(sU + ((warp + 4 * t) * kHaloW + p) * us + ch);
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int n = unit / tiles, tile = unit - n * tiles;
+    const int ty0 = (tile / tiles_x) * kTH, tx0 = (tile % tiles_x) * kTW;
+    const size_t g0 = (size_t)n * F * HW;
+    __syncthreads();                 // the last tile's loads are done
+    de::stage_halo<kTH>(sU, us, F, h, w, HW, ty0, tx0, ge + g0);
+    __syncthreads();
+
+    float acc[2][NC / 2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < NC / 2; ++e) acc[t][e] = 0.0f;
+    unsigned af[2][2][NG][4];        // [register set][tile half][group]
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      const int set = s & 1;
+      const unsigned off =
+          (unsigned)(((s / 3) * kHaloW + s % 3) * us * sizeof(bf16));
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int cg = 0; cg < NG; ++cg)
+          de::ldmatrix_x4_addr(af[set][t][cg], ab[t] + off + cg * 32);
+      de::wg_fence();
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg) {
+        const uint64_t desc = de::kmajor_desc(sB, s * NG + cg, NC);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          de::Wgmma<NC>::mma(acc[t], af[set][t][cg], desc);
+      }
+      de::wg_commit();
+      de::wg_wait<1>();              // the other register set is free
+    }
+    de::wg_wait<0>();
+
+    // epilogue: element e of n8 group j is pixel g (+8 for e >= 2) of the
+    // warp's tile row, channel 8j + q2 (+1 for odd e)
+    const size_t x0 = (size_t)n * C * HW;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = 8 * j + q2 + e1;
+        const float ac = c < C ? a[c] : 0.0f, bc = c < C ? b[c] : 0.0f;
+        float sx = 0.0f, sd = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int py = ty0 + warp + 4 * t, px = tx0 + g + 8 * hh;
+            if (c >= C || py >= h || px >= w) continue;
+            const size_t at = x0 + (size_t)c * HW + py * w + px;
+            const float xv = __bfloat162float(x[at]);
+            const float dv =
+                act_bwd(acc[t][4 * j + 2 * hh + e1], affine(xv, ac, bc), act);
+            dx[at] = __float2bfloat16(dv * ac);
+            sx += dv * xv;
+            sd += dv;
+          }
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          sx += __shfl_xor_sync(0xffffffffu, sx, o);
+          sd += __shfl_xor_sync(0xffffffffu, sd, o);
+        }
+        if (g == 0) {
+          sRed[(warp * NC + c) * 2] += sx;
+          sRed[(warp * NC + c) * 2 + 1] += sd;
+        }
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += kThreads) {
+    const int c = i / 2, k = i % 2;
+    float v = 0.0f;
+    for (int wi = 0; wi < kWarps; ++wi) v += sRed[(wi * NC + c) * 2 + k];
+    partials[((size_t)c * gridDim.x + blockIdx.x) * 2 + k] = v;
+  }
+}
+
+template <int NC, int NG>
+cudaError_t launch_dx(const bf16* ge, const bf16* wt, const bf16* x,
+                      const float* a, const float* b, bf16* dx,
+                      float* partials, float* dab, int cap, int N, int C,
+                      int F, int h, int w, int act, cudaStream_t s) {
+  const size_t smem = sizeof(bf16) * ((size_t)9 * NG * 16 * NC +
+                                      (size_t)kHalo * (NG * 16 + 8)) +
+                      sizeof(float) * kWarps * NC * 2;
+  auto kernel = convbn2d_dx_kernel<NC, NG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, n_sm = 0;
+  err = de::blocks_per_sm(kernel, kThreads, smem, &per_sm, &n_sm);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (w + kTW - 1) / kTW;
+  const int units = N * ((h + kTH - 1) / kTH) * tiles_x;
+  const int nblk = std::min({units, std::max(per_sm, 1) * n_sm, cap});
+  kernel<<<nblk, kThreads, smem, s>>>(ge, wt, x, a, b, dx, partials, C, F, h,
+                                       w, act, tiles_x, units);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_reduce_kernel<<<C, 256, 0, s>>>(partials, dab, nblk);
+  return cudaGetLastError();
+}
+
+// the data gradient at Cp = NC, Fp chosen at run time
+template <int NC>
+cudaError_t dispatch_dx(int Fp, const bf16* ge, const bf16* wt, const bf16* x,
+                        const float* a, const float* b, bf16* dx,
+                        float* partials, float* dab, int cap, int N, int C,
+                        int F, int h, int w, int act, cudaStream_t s) {
+#define DE_DX(fp)                                                            \
+  launch_dx<NC, fp / 16>(ge, wt, x, a, b, dx, partials, dab, cap, N, C, F,   \
+                         h, w, act, s)
+  DE_SWITCH16(Fp, DE_DX)
+#undef DE_DX
 }
 
 }  // namespace
@@ -521,59 +478,62 @@ extern "C" int convbn2d_fwd(const void* x, const void* wk, const void* a,
                             int Fp, int h, int w, int act, void* stream) {
   if (bad_dims(C, Cp, F, Fp, act) || N < 1 || h < 1 || w < 1)
     return cudaErrorInvalidValue;
-  return dispatch_conv<false>(
-      Fp, (const bf16*)x, nullptr, (const float*)a, (const float*)b,
-      (const bf16*)wk, nullptr, nullptr, nullptr, (bf16*)y, (float*)partials,
-      (float*)stats, N, C, Cp, F, h, w, act, (cudaStream_t)stream);
+#define DE_FWD(fp)                                                           \
+  launch_fwd<fp / 16>((const bf16*)x, (const float*)a, (const float*)b,      \
+                      (const bf16*)wk, (bf16*)y, (float*)partials,           \
+                      (float*)stats, N, C, Cp, F, h, w, act,                 \
+                      (cudaStream_t)stream)
+  DE_SWITCH16(Fp, DE_FWD)
+#undef DE_FWD
 }
 
 // The backward of convbn2d_fwd (convbn2d_pallas.py:_bwd_kernel and
-// _xla_seam_dw), in four launches on ``stream``: the data gradient,
-// convbn2d_kernel<kBwd> over ge folded from (gy, y, s01) with wkb [Cp,
-// 9*Fp] (wkb[c, s*Fp + f] = W[f, c, 8 - s]), giving dx and per-block
-// (da, db) sums in ab_partials [C, cap, 2] that stats_reduce_kernel adds
-// into dab [C, 2]; and the weight gradient, convbn2d_dw_kernel on
-// (dw_blocks, nsplit) blocks into dw_partials [dw_blocks, Fp, 9*Cp] and
-// dw_reduce_kernel into dw [Fp, 9*Cp] (column s*Cp + c; padding rows and
-// columns are zero). x [N, C, hw], y, gy [N, F, hw] bf16; a, b [C] f32;
-// s01 [2, F] f32 (the statistics' cotangent, transposed); dx [N, C, hw]
-// bf16. All contiguous.
-extern "C" int convbn2d_bwd(const void* x, const void* wkb, const void* a,
+// _xla_seam_dw), in six launches on ``stream``: the fold of the
+// statistics' cotangent into ge [N, F, hw] (scratch, bf16); the data
+// gradient (convbn2d_dx_kernel) into dx and per-block (da, db) sums in
+// ab_partials [C, cap, 2], which stats_reduce_kernel adds into dab [C, 2];
+// the normalized input, channels fastest, into u [N, hw, Cp] (scratch,
+// bf16); the weight gradient (conv_bwd.cuh's conv_dw_kernel with one tap)
+// on (dw_blocks, nsplit) blocks of 128 * wgs threads (nsplit * wgs >=
+// ceil(9 Cp / 64)) into dw_partials [dw_blocks, 9 Cp, Fp], which its
+// second pass adds into dw [F, C, 3, 3]. x [N, C, hw], y, gy [N, F, hw],
+// w [F, C, 3, 3] bf16; a, b [C], gstats [F, 2] f32; dx [N, C, hw] bf16.
+// All contiguous. C, F <= 80.
+extern "C" int convbn2d_bwd(const void* x, const void* w, const void* a,
                             const void* b, const void* y, const void* gy,
-                            const void* s01, void* dx, void* dab,
-                            void* ab_partials, void* dw, void* dw_partials,
-                            int N, int C, int Cp, int F, int Fp, int h, int w,
-                            int act, int dw_blocks, int nsplit,
+                            const void* gstats, void* ge, void* u, void* dx,
+                            void* dab, void* ab_partials, void* dw,
+                            void* dw_partials, int N, int C, int F, int h,
+                            int wd, int act,
+                            int cap, int dw_blocks, int nsplit, int wgs,
                             void* stream) {
-  const int pairs = (Fp / 16) * (9 * Cp / 16);
-  const int per_split = nsplit > 0 ? (pairs + nsplit - 1) / nsplit : 0;
-  if (bad_dims(C, Cp, F, Fp, act) || N < 1 || h < 1 || w < 1 ||
-      dw_blocks < 1 || nsplit < 1 || per_split > kDwWarps * kDwPairs)
+  const int Cp = de::round16(C), Fp = de::round16(F);
+  if (bad_dims(C, Cp, F, Fp, act) || N < 1 || h < 1 || wd < 1 || cap < 1 ||
+      dw_blocks < 1 || nsplit < 1 || wgs < 1 || wgs > de::kDwMaxWgs ||
+      nsplit * wgs * 64 < 9 * Cp)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float* s0 = (const float*)s01;
-  const float* s1 = s0 + F;
-  cudaError_t err = dispatch_conv<true>(
-      Cp, (const bf16*)gy, (const bf16*)y, s0, s1, (const bf16*)wkb,
-      (const bf16*)x, (const float*)a, (const float*)b, (bf16*)dx,
-      (float*)ab_partials, (float*)dab, N, F, Fp, C, h, w, act, s);
+  cudaError_t err =
+      de::launch_ge_fold((const bf16*)gy, (const bf16*)y,
+                         (const float*)gstats, (bf16*)ge, N, F, h * wd, s);
   if (err != cudaSuccess) return err;
-
-  const size_t dw_smem = sizeof(bf16) * ((size_t)kDHalo * (Cp + 8) +
-                                         (size_t)kDH * kDW * (Fp + 8));
-  err = cudaFuncSetAttribute(convbn2d_dw_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dw_smem);
+#define DE_DX(nc)                                                            \
+  dispatch_dx<nc>(Fp, (const bf16*)ge, (const bf16*)w, (const bf16*)x,       \
+                  (const float*)a, (const float*)b, (bf16*)dx,               \
+                  (float*)ab_partials, (float*)dab, cap, N, C, F, h, wd,     \
+                  act, s)
+  err = [&]() -> cudaError_t { DE_SWITCH16(Cp, DE_DX) }();
+#undef DE_DX
   if (err != cudaSuccess) return err;
-  const int tiles_x = (w + kDW - 1) / kDW;
-  convbn2d_dw_kernel<<<dim3(dw_blocks, nsplit), kDwThreads, dw_smem, s>>>(
-      (const bf16*)gy, (const bf16*)y, s0, s1, (const bf16*)x,
-      (const float*)a, (const float*)b, (float*)dw_partials, N, C, Cp, F, Fp,
-      h, w, act, tiles_x, per_split);
-  err = cudaGetLastError();
+  err = de::launch_conv_dw_input((const bf16*)x, (const float*)a,
+                                 (const float*)b, (bf16*)u, N, C, Cp, h * wd,
+                                 act, s);
   if (err != cudaSuccess) return err;
-  const int elems = Fp * 9 * Cp;
-  dw_reduce_kernel<<<(elems + 255) / 256, 256, 0, s>>>(
-      (const float*)dw_partials, (float*)dw, dw_blocks, elems);
-  return cudaGetLastError();
+  const de::DwArgs p{(const bf16*)ge, (const bf16*)u, N, C, Cp, F, 1, 1, h,
+                     wd};
+#define DE_DW(np)                                                            \
+  de::launch_conv_dw<np>(p, (float*)dw_partials, (float*)dw, dw_blocks,      \
+                         nsplit, wgs, s)
+  DE_SWITCH16(Fp, DE_DW)
+#undef DE_DW
 }

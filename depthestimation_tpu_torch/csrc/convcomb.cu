@@ -47,29 +47,35 @@
 // with u9 rebuilt from the saved bf16 x (convcomb_pallas.py:178-256).
 // du(n) = P_1(n) + P_2(n-1) [n%D>0] + P_0(n+1) [n%D<D-1], P_t(m) being
 // tap t's transposed conv of ge(m): the forward's ring with the taps in
-// reverse order. So the data gradient is this file's forward kernel
-// instantiated with kBwd: ge in place of x (no normalize), the flipped,
-// transposed weights, the ring in f32, and an epilogue that writes dx and
-// per-block (da, db) sums. The weight gradient is a GEMM of M = 3F,
-// N = 9C over K = B*D*H*W (3.1 M at the flagship B=8): tensor-core work
-// of 2 * 3F * 9C per pixel and row against a few bytes per pixel, so it
-// is bound by building its operands and feeding mma.sync; one block per
-// SM keeps its share of the [3F, 9C] sums in registers across a grid-
-// stride walk over (row, tile) units and writes one partial, and a second
-// pass adds the partials in a fixed order (no atomics, so the gradients
-// are the same from run to run).
+// reverse order. Bound: at C = F = 32, N = 512, 64x96 the two GEMMs are
+// 348 GFLOP, 0.352 ms on the tensor cores, above the bytes of x, y, gy and
+// dx. Both run on wgmma (wgmma.cuh), the operand that needs the 3x3 shift
+// in registers (ldmatrix from the halo tile), the regular one in shared
+// memory:
+//   dx: convcomb_dx_kernel, the forward's ring over a depth segment with
+//       M = 64 pixels, N = Cp, K = 9 Fp for each of the three taps (B =
+//       the taps' flipped, transposed weights, read from wm's own layout
+//       once per block), the ring summed in f32;
+//   dW: conv_bwd.cuh's conv_dw_kernel with three taps, M = 9 Cp (row
+//       s*Cp + c), N = 3F padded to 16 (the stacked taps, masked at the
+//       depth edges), K = every pixel of every row, 128 pixels between
+//       barriers; its second pass writes wm's [3F, C, 3, 3].
+// ge is written once by a fold pass (conv_bwd.cuh), which measured
+// cheaper than folding it on load: the weight gradient reads each ge row
+// three times and both gradients stage it.
+// Partial sums per block, added in a fixed order: no atomics, so the
+// gradients repeat bit for bit.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "conv_bwd.cuh"
 #include "reduce.cuh"
+#include "wgmma.cuh"
 
 using de::bf16;
-using de::dw_reduce_kernel;
 using de::ldmatrix_x4;
-using de::ldmatrix_x4_trans;
 using de::mma_16816;
-using de::smem_addr;
 using de::stats_reduce_kernel;
 
 namespace {
@@ -82,18 +88,12 @@ constexpr int kHalo = (kTH + 2) * kHaloW;  // 108 halo pixels
 constexpr int kNT = 4;                     // n8 pixel tiles per warp (max)
 constexpr int kMaxF = 32;                  // two 16-channel row tiles
 
-// kBwd = false: the forward layer (x -> y, stats). kBwd = true: its data
-// gradient (see convcomb_bwd): x is then the folded cotangent ge [N, C, HW]
-// (C = the layer's F), loaded as it is; the three weight slots hold the
-// flipped, transposed taps in reverse order; the ring adds in f32 without
-// rounding; and the epilogue turns du into dx = bf16(dv * a) with
-// dv = du * [v > 0] on the f32 pre-activation v = xo * a + b of the
-// layer's input xo, summing (dv * xo, dv) per channel into ``partials``.
-template <bool kBwd>
+// The forward layer (x -> y, stats): the ring over the segment's input
+// rows, each normalized once into the halo tile.
 __global__ void __launch_bounds__(kThreads)
 convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
                 const float* __restrict__ a, const float* __restrict__ b,
-                const bf16* __restrict__ xo, bf16* __restrict__ y,
+                bf16* __restrict__ y,
                 float* __restrict__ partials, int C, int Cp, int F, int Fp,
                 int depth, int h, int w, int relu, int seg, int nseg,
                 int tiles_x) {
@@ -153,8 +153,8 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
     for (int e = 0; e < 4; ++e) part[j][e] = t0p[j][e] = 0.0f;
   float st[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // [row half][sum, sumsq]
 
-  // row r's values (y, or du for kBwd) from this lane's fragments ->
-  // global bf16 (y, or dx), and the channel sums
+  // row r's y from this lane's fragments -> global bf16, and the channel
+  // sums
   auto emit = [&](int r, const float (&v)[kNT][4]) {
     const size_t row = (size_t)item * depth + r;
 #pragma unroll
@@ -169,24 +169,8 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
         if (f >= F || gy >= h) continue;
         const size_t at = (row * F + f) * HW + (size_t)gy * w + gx;
         const bool ok0 = gx < w, ok1 = gx + 1 < w;
-        float v0 = v[j][2 * hh], v1 = v[j][2 * hh + 1];
-        float s0 = v0, s1 = v1, q0 = v0 * v0, q1 = v1 * v1;
-        if constexpr (kBwd) {
-          const float x0 = ok0 ? __bfloat162float(xo[at]) : 0.0f;
-          const float x1 = ok1 ? __bfloat162float(xo[at + 1]) : 0.0f;
-          // the mask on the f32 pre-activation, unfused as in the TPU
-          // kernel and the plain version
-          if (relu && !(__fadd_rn(__fmul_rn(x0, a[f]), b[f]) > 0.0f))
-            v0 = 0.0f;
-          if (relu && !(__fadd_rn(__fmul_rn(x1, a[f]), b[f]) > 0.0f))
-            v1 = 0.0f;
-          s0 = v0 * x0;                      // (da, db) terms
-          s1 = v1 * x1;
-          q0 = v0;
-          q1 = v1;
-          v0 *= a[f];                        // dx = dv * a
-          v1 *= a[f];
-        }
+        const float v0 = v[j][2 * hh], v1 = v[j][2 * hh + 1];
+        const float s0 = v0, s1 = v1, q0 = v0 * v0, q1 = v1 * v1;
         bf16* dst = y + at;
         if (ok1 && !(w & 1)) {      // even w: the pair is 4-byte aligned
           *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -218,11 +202,8 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
       const int gy = ty0 + yy - 1, gx = tx0 + xx - 1;
       float v = 0.0f;
       if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        v = __bfloat162float(xm[(size_t)c * HW + gy * w + gx]);
-        if constexpr (!kBwd) {
-          v = v * a[c] + b[c];
-          if (relu) v = fmaxf(v, 0.0f);
-        }
+        v = __bfloat162float(xm[(size_t)c * HW + gy * w + gx]) * a[c] + b[c];
+        if (relu) v = fmaxf(v, 0.0f);
       }
       sU[hp * us + c] = __float2bfloat16(v);
     }
@@ -260,8 +241,7 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
     // the accumulator layout, so the combine is elementwise):
     //   y(m-1)  = bf16(part(m-1) + bf16(t2(m)))
     //   part(m) = bf16(bf16(t1(m)) + bf16(t0(m-1)))   [t0 term iff m > 0]
-    // The backward's du ring is the same sum in f32 (no rounding).
-    auto rnd = [](float v) { return kBwd ? v : de::round_bf16(v); };
+    auto rnd = [](float v) { return de::round_bf16(v); };
     const bool out = m - 1 >= d0 && m - 1 < d1;
     const bool in = m >= d0 && m < d1;
     float yv[kNT][4];
@@ -308,150 +288,203 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   }
 }
 
-// ge = bf16(gy + s0 + 2 * y * s1) with (s0, s1) = gstats[f]: the output
-// cotangent with the statistics' cotangent folded in
-// (convcomb_pallas.py:201-205).
-__global__ void __launch_bounds__(256)
-ge_fold_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
-               const float* __restrict__ gstats, bf16* __restrict__ ge, int F,
-               int HW, size_t total) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int f = (int)((i / HW) % F);
-    const float v = __fadd_rn(__bfloat162float(gy[i]) + gstats[2 * f],
-                              2.0f * __bfloat162float(y[i]) * gstats[2 * f + 1]);
-    ge[i] = __float2bfloat16(v);
+// Data gradient. ``NC`` = Cp, the wgmma N; ``NG`` = Fp / 16 (both
+// constants, so that every register operand of the products is known to
+// the compiler). The forward's ring over a
+// depth segment, one warpgroup a block: per input row m the block stages
+// ge(m)'s 6x18-pixel halo in shared memory (Fp channels fastest), then
+// per 3x3 shift s loads the A fragments (warp w: tile row w, 16 pixels)
+// and issues the three taps' products into acc[q] (slot q = tap 2 - q, B
+// = the taps' flipped, transposed weights [9 Fp, Cp], read from wm's
+// [3F, C, 3, 3] once per block); the shifts alternate two register sets,
+// so the loads of shift s + 1 overlap the products of shift s. The ring
+// sums the taps in f32, and the epilogue writes dx = bf16(dv a) with
+// dv = du [v > 0] on the f32 pre-activation of x, and per-block (sum dv x,
+// sum dv) into ``partials`` [C, nblk, 2].
+template <int NC, int NG>
+__global__ void __launch_bounds__(kThreads)
+convcomb_dx_kernel(const bf16* __restrict__ ge,
+                   const bf16* __restrict__ wm, const bf16* __restrict__ x,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   bf16* __restrict__ dx, float* __restrict__ partials,
+                   int C, int F, int depth, int h, int w, int relu, int seg,
+                   int nseg, int tiles_x) {
+  constexpr int Fp = NG * 16;
+  const int HW = h * w;
+  const int ty0 = (blockIdx.x / tiles_x) * kTH;
+  const int tx0 = (blockIdx.x % tiles_x) * kTW;
+  const int item = blockIdx.y / nseg;
+  const int d0 = (blockIdx.y % nseg) * seg;
+  const int d1 = min(d0 + seg, depth);
+  const int nblk = gridDim.x * gridDim.y;
+  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int K = 9 * Fp, us = Fp + 8;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sB = reinterpret_cast<bf16*>(smem);                  // [3][K, NC]
+  bf16* sU = sB + 3 * K * NC;                                 // [kHalo, us]
+  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);    // [4][NC][2]
+
+  const uint4 z4 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < (3 * K * NC + kHalo * us) / 8; i += kThreads)
+    reinterpret_cast<uint4*>(sB)[i] = z4;
+  __syncthreads();
+  // wm [3F, C, 3, 3], row t*F + f -> slot 2 - t, B[(8 - r) * Fp + f][c]
+  const float inv_c9 = 1.0f / (C * 9), inv_f = 1.0f / F;
+  de::for_each_bf16(wm, 3 * F * C * 9, [&](int i, unsigned short v) {
+    const int tf = de::div_small(i, C * 9, inv_c9), rem = i - tf * C * 9;
+    const int c = rem / 9, r = rem - c * 9;
+    const int t = de::div_small(tf, F, inv_f), f = tf - t * F;
+    sB[(2 - t) * K * NC + de::kmajor_off((8 - r) * Fp + f, c, NC)] =
+        __ushort_as_bfloat16(v);
+  });
+  de::fence_proxy_async();
+
+  // ldmatrix rows: pixel p of the warp's tile row, channel half ch
+  const int p = (lane & 7) + ((lane >> 3) & 1) * 8, ch = (lane >> 4) * 8;
+  const unsigned ab = de::smem_addr(sU + (warp * kHaloW + p) * us + ch);
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+
+  float part[NC / 2], t0p[NC / 2], st[NC / 8][2][2];
+#pragma unroll
+  for (int e = 0; e < NC / 2; ++e) part[e] = t0p[e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) st[j][e][0] = st[j][e][1] = 0.0f;
+
+  // row r's du -> dx, and the (da, db) sums; element e of n8 group j is
+  // pixel g (+8 for e >= 2) of the warp's tile row, channel 8j + q2 (+1
+  // for odd e)
+  auto emit = [&](int r, const float (&v)[NC / 2]) {
+    const size_t row = (size_t)item * depth + r;
+    const int py = ty0 + warp;
+    if (py >= h) return;
+    float xv[NC / 8][4];             // the loads first, in flight together
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + q2 + (e & 1), px = tx0 + g + (e >> 1) * 8;
+        xv[j][e] = c < C && px < w
+                       ? __bfloat162float(x[(row * C + c) * HW + py * w + px])
+                       : 0.0f;
+      }
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + q2 + (e & 1), px = tx0 + g + (e >> 1) * 8;
+        if (c >= C || px >= w) continue;
+        // the mask on the f32 pre-activation, unfused as in the TPU kernel
+        // and the plain version
+        const float dv = relu && !(de::affine(xv[j][e], a[c], b[c]) > 0.0f)
+                             ? 0.0f
+                             : v[4 * j + e];
+        dx[(row * C + c) * HW + py * w + px] = __float2bfloat16(dv * a[c]);
+        st[j][e & 1][0] += dv * xv[j][e];
+        st[j][e & 1][1] += dv;
+      }
+  };
+
+  const int m_begin = d0 > 0 ? d0 - 1 : 0;
+  const int m_end = d1 < depth ? d1 : depth - 1;
+  for (int m = m_begin; m <= m_end; ++m) {
+    const size_t g0 = ((size_t)item * depth + m) * F * HW;
+    __syncthreads();                 // the last row's loads are done
+    de::stage_halo<kTH>(sU, us, F, h, w, HW, ty0, tx0, ge + g0);
+    __syncthreads();
+
+    float acc[3][NC / 2];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < NC / 2; ++e) acc[q][e] = 0.0f;
+    unsigned af[2][NG][4];           // [register set][group]
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      const int set = s & 1;
+      const unsigned off =
+          ab + (unsigned)(((s / 3) * kHaloW + s % 3) * us * sizeof(bf16));
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg)
+        de::ldmatrix_x4_addr(af[set][cg], off + cg * 32);
+      de::wg_fence();
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          de::Wgmma<NC>::mma(acc[q], af[set][cg],
+                             de::kmajor_desc(sB + q * K * NC, s * NG + cg,
+                                             NC));
+      }
+      de::wg_commit();
+      de::wg_wait<1>();              // the other register set is free
+    }
+    de::wg_wait<0>();
+
+    // the ring in f32: du(m-1) = part(m-1) + P_0(m), part(m) = P_1(m) +
+    // P_2(m-1) [m > 0]; acc[q] = P_{2-q}(m)
+    const bool out = m - 1 >= d0 && m - 1 < d1;
+    const bool in = m >= d0 && m < d1;
+    float du[NC / 2];
+#pragma unroll
+    for (int e = 0; e < NC / 2; ++e) {
+      du[e] = part[e] + acc[2][e];
+      if (in) part[e] = m > 0 ? acc[1][e] + t0p[e] : acc[1][e];
+      t0p[e] = acc[0][e];
+    }
+    if (out) emit(m - 1, du);
+  }
+  if (d1 == depth) emit(depth - 1, part);   // the top row: no upper tap
+
+  // (da, db): the 8 lanes of a channel, then the warps in order
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float v = st[j][e][k];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (g == 0) sRed[(warp * NC + 8 * j + q2 + e) * 2 + k] = v;
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += kThreads) {
+    const int c = i / 2, k = i % 2;
+    float v = 0.0f;
+    for (int wi = 0; wi < kWarps; ++wi) v += sRed[(wi * NC + c) * 2 + k];
+    partials[((size_t)c * nblk + bid) * 2 + k] = v;
   }
 }
 
-constexpr int kDwThreads = 512;
-constexpr int kDwWarps = kDwThreads / 32;
-constexpr int kDwPairs = 7;     // (m16, n16) output tiles per warp, at most
-
-// Weight gradient, per-block partial sums:
-//   dW[t*F + f, s*Cp + c] = sum over rows n and pixels p of
-//                           g_t(n)[f, p] * u(n)[c, p + shift_s]
-// with the taps g_0(n) = ge(n+1) [n%D < D-1], g_1(n) = ge(n),
-// g_2(n) = ge(n-1) [n%D > 0], and u = bf16(relu?(x * a + b)) rebuilt from
-// the saved input (convcomb_pallas.py:186-245). A GEMM of M = 3F, N = 9Cp
-// over K = every pixel of every row: each block walks work units (one row,
-// one 4x16-pixel tile) in a grid-stride loop and keeps its share of the
-// [M, N] sums in the warps' accumulator registers across all its units; it
-// writes them once to partials[block] and dw_reduce_kernel adds the blocks
-// in a fixed order. Operands: the tile's g_taps in shared memory pixel-
-// major ([64][Mp]), the normalized halo tile as in the forward; ldmatrix
-// .trans reads both as mma.sync fragments, the halo at each 3x3 shift.
-__global__ void __launch_bounds__(kDwThreads, 1)
-convcomb_dw_kernel(const bf16* __restrict__ ge, const bf16* __restrict__ x,
-                   const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ partials, int N, int C, int Cp, int F,
-                   int Mp, int depth, int h, int w, int relu, int tiles_x,
-                   int tiles) {
-  const int HW = h * w;
-  const int Np = 9 * Cp;
-  const int us = Cp + 8, gs = Mp + 8;   // row strides: +16 B, no conflicts
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nc16 = Np / 16;
-  const int pairs = (Mp / 16) * nc16;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sU = reinterpret_cast<bf16*>(smem);                  // [kHalo, us]
-  bf16* sG = sU + kHalo * us;                                 // [64, gs]
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < kHalo * us + kTH * kTW * gs; i += kDwThreads)
-    sU[i] = zero;           // padding channels and rows stay zero
-
-  float acc[kDwPairs][2][4];
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.0f;
-
-  // ldmatrix row of this lane (matrix lane/8, row lane%8) for each of the
-  // warp's (m16, n16) tiles, at tile row 0 of the unit: A, the tap
-  // cotangents, at pixel a_k and m offset a_m; B, the halo at pixel b_k
-  // shifted by s = nc*16 / Cp, channel c0 + b_n. Tile row r adds r rows.
-  const int mat = lane >> 3, lrow = lane & 7;
-  const int a_k = lrow + (mat >> 1) * 8, a_m = (mat & 1) * 8;
-  const int b_k = lrow + (mat & 1) * 8, b_n = (mat >> 1) * 8;
-  unsigned a_addr[kDwPairs], b_addr[kDwPairs];
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q) {
-    const int pr = min(warp + q * kDwWarps, pairs - 1);
-    const int mt = pr / nc16, nc = pr - mt * nc16;
-    const int s = (nc * 16) / Cp, c0 = nc * 16 - s * Cp;
-    a_addr[q] = smem_addr(sG + a_k * gs + mt * 16 + a_m);
-    b_addr[q] = smem_addr(sU + ((s / 3) * kHaloW + b_k + s % 3) * us + c0 +
-                          b_n);
-  }
-  const unsigned a_row = kTW * gs * sizeof(bf16);
-  const unsigned b_row = kHaloW * us * sizeof(bf16);
-
-  const int units = N * tiles;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int row = u / tiles, tile = u - row * tiles;
-    const int ty0 = (tile / tiles_x) * kTH, tx0 = (tile % tiles_x) * kTW;
-    const int dd = row % depth;
-    __syncthreads();                 // the last unit's products are done
-    const bf16* xm = x + (size_t)row * C * HW;
-    for (int i = threadIdx.x; i < C * kHalo; i += kDwThreads) {
-      const int c = i / kHalo, hp = i - c * kHalo;
-      const int yy = hp / kHaloW, xx = hp - yy * kHaloW;
-      const int gy = ty0 + yy - 1, gx = tx0 + xx - 1;
-      float v = 0.0f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        v = __bfloat162float(xm[(size_t)c * HW + gy * w + gx]) * a[c] + b[c];
-        if (relu) v = fmaxf(v, 0.0f);
-      }
-      sU[hp * us + c] = __float2bfloat16(v);
-    }
-    for (int i = threadIdx.x; i < 3 * F * kTH * kTW; i += kDwThreads) {
-      const int m = i / (kTH * kTW), p = i - m * (kTH * kTW);
-      const int t = m < F ? 0 : m < 2 * F ? 1 : 2, f = m - t * F;
-      const int src = row + 1 - t;          // g_t(n) reads ge(n + 1 - t)
-      const bool tap_ok = t == 1 || (t == 0 ? dd < depth - 1 : dd > 0);
-      const int gy = ty0 + p / kTW, gx = tx0 + p % kTW;
-      bf16 v = zero;
-      if (tap_ok && gy < h && gx < w)
-        v = ge[((size_t)src * F + f) * HW + gy * w + gx];
-      sG[p * gs + m] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kTH; ++r) {         // k16 step = tile row r
-#pragma unroll
-      for (int q = 0; q < kDwPairs; ++q) {
-        if (warp + q * kDwWarps >= pairs) continue;
-        unsigned af[4], bfr[4];
-        ldmatrix_x4_trans(af, a_addr[q] + r * a_row);
-        ldmatrix_x4_trans(bfr, b_addr[q] + r * b_row);
-        mma_16816(acc[q][0], af, bfr[0], bfr[1]);
-        mma_16816(acc[q][1], af, bfr[2], bfr[3]);
-      }
-    }
-  }
-
-  // accumulator element e of n8 tile j: row g (+8 for e >= 2), column
-  // q2 (+1 for odd e)
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-  float* out = partials + (size_t)blockIdx.x * Mp * Np;
-#pragma unroll
-  for (int q = 0; q < kDwPairs; ++q) {
-    const int pr = warp + q * kDwWarps;
-    if (pr >= pairs) continue;
-    const int mt = pr / nc16, nc = pr - mt * nc16;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = mt * 16 + g + (e >> 1) * 8;
-        const int n = nc * 16 + j * 8 + q2 + (e & 1);
-        out[(size_t)m * Np + n] = acc[q][j][e];
-      }
-  }
+template <int NC, int NG>
+cudaError_t launch_dx(const bf16* ge, const bf16* wm, const bf16* x,
+                      const float* a, const float* b, bf16* dx,
+                      float* partials, float* dab, int N, int C, int F,
+                      int depth, int h, int w, int relu, int seg,
+                      cudaStream_t s) {
+  const size_t smem = sizeof(bf16) * ((size_t)3 * 9 * NG * 16 * NC +
+                                      (size_t)kHalo * (NG * 16 + 8)) +
+                      sizeof(float) * kWarps * NC * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      convcomb_dx_kernel<NC, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (w + kTW - 1) / kTW;
+  const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
+  const int nseg = (depth + seg - 1) / seg;
+  dim3 grid(tiles, (N / depth) * nseg);
+  convcomb_dx_kernel<NC, NG><<<grid, kThreads, smem, s>>>(
+      ge, wm, x, a, b, dx, partials, C, F, depth, h, w, relu, seg, nseg,
+      tiles_x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_reduce_kernel<<<C, 256, 0, s>>>(partials, dab, grid.x * grid.y);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -476,14 +509,14 @@ extern "C" int convcomb_fwd(const void* x, const void* wk, const void* a,
                                       (size_t)kHalo * (Cp + 8)) +
                       sizeof(float) * kWarps * 16 * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      convcomb_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      convcomb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid(tiles, (N / depth) * nseg);
-  convcomb_kernel<false><<<grid, kThreads, smem, s>>>(
+  convcomb_kernel<<<grid, kThreads, smem, s>>>(
       (const bf16*)x, (const bf16*)wk, (const float*)a, (const float*)b,
-      nullptr, (bf16*)y, (float*)partials, C, Cp, F, Fp, depth, h, w, relu,
+      (bf16*)y, (float*)partials, C, Cp, F, Fp, depth, h, w, relu,
       seg, nseg, tiles_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -492,74 +525,58 @@ extern "C" int convcomb_fwd(const void* x, const void* wk, const void* a,
   return cudaGetLastError();
 }
 
-// The backward of convcomb_fwd (convcomb_pallas.py:_bwd_kernel), in four
-// launches on ``stream``: the ge fold; the data gradient, convcomb_kernel
-// <true> over ge with wkb [3, Cp_out, 9*Fp_in] (slot q = tap 2 - q,
-// flipped 3x3, transposed: wkb[q, c, s*Fp_in + f] = wm[(2-q)F + f, c,
-// 8 - s]), giving dx and per-block (da, db) sums in ab_partials [C, nblk,
-// 2] that stats_reduce_kernel adds into dab [C, 2]; and the weight
-// gradient, convcomb_dw_kernel on ``dw_blocks`` blocks into dw_partials
-// [dw_blocks, Mp, 9*Cp] and dw_reduce_kernel into dw [Mp, 9*Cp] (row
-// t*F + f, column s*Cp + c; rows >= 3F are zero).
-// x [N, C, hw], y, gy [N, F, hw] bf16; a, b [C], gstats [F, 2] f32; ge
-// [N, F, hw] bf16 scratch; dx [N, C, hw] bf16. All contiguous.
-extern "C" int convcomb_bwd(const void* x, const void* wkb, const void* a,
+// The backward of convcomb_fwd (convcomb_pallas.py:_bwd_kernel), in six
+// launches on ``stream``: the fold of the statistics' cotangent into ge
+// [N, F, hw] (scratch, bf16); the data gradient (convcomb_dx_kernel, the
+// grid of the forward's ring with ``seg`` rows a block) into dx and
+// per-block (da, db) sums in ab_partials [C, nblk, 2], which
+// stats_reduce_kernel adds into dab [C, 2]; the normalized input, channels
+// fastest, into u [N, hw, Cp] (scratch, bf16); the weight gradient
+// (conv_bwd.cuh's conv_dw_kernel with three taps) on (dw_blocks, nsplit)
+// blocks of 128 * wgs threads (nsplit * wgs >= ceil(9 Cp / 64)) into
+// dw_partials [dw_blocks, 9 Cp, round16(3F)], which its second pass adds
+// into dw [3F, C, 3, 3]. x [N, C, hw], y, gy [N, F, hw], wm [3F, C, 3, 3]
+// bf16; a, b [C], gstats [F, 2] f32; dx [N, C, hw] bf16. All contiguous.
+// C, F <= 32.
+extern "C" int convcomb_bwd(const void* x, const void* wm, const void* a,
                             const void* b, const void* y, const void* gy,
-                            const void* gstats, void* ge, void* dx, void* dab,
-                            void* ab_partials, void* dw, void* dw_partials,
-                            int N, int C, int Cp, int F, int Fp_in, int Mp,
-                            int depth, int h, int w, int relu, int seg,
-                            int dw_blocks, void* stream) {
-  if (C > kMaxF || Cp % 16 || Cp < C || (Cp != 16 && Cp != 32) ||
-      Fp_in % 16 || Fp_in < F || Mp % 16 || Mp < 3 * F ||
-      (Mp / 16) * (9 * Cp / 16) > kDwPairs * kDwWarps || N % depth ||
-      seg < 1 || dw_blocks < 1)
+                            const void* gstats, void* ge, void* u, void* dx,
+                            void* dab, void* ab_partials, void* dw,
+                            void* dw_partials, int N, int C, int F, int depth,
+                            int h, int w,
+                            int relu, int seg, int dw_blocks, int nsplit,
+                            int wgs, void* stream) {
+  const int Cp = de::round16(C), Fp = de::round16(F), Np = de::round16(3 * F);
+  if (C < 1 || F < 1 || C > kMaxF || F > kMaxF || N < 1 || N % depth ||
+      h < 1 || w < 1 || seg < 1 || dw_blocks < 1 || nsplit < 1 || wgs < 1 ||
+      wgs > de::kDwMaxWgs || nsplit * wgs * 64 < 9 * Cp)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int HW = h * w;
-  const size_t total = (size_t)N * F * HW;
-  ge_fold_kernel<<<(int)std::min<size_t>((total + 255) / 256, 65536), 256, 0,
-                   s>>>((const bf16*)gy, (const bf16*)y, (const float*)gstats,
-                        (bf16*)ge, F, HW, total);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      de::launch_ge_fold((const bf16*)gy, (const bf16*)y,
+                         (const float*)gstats, (bf16*)ge, N, F, h * w, s);
   if (err != cudaSuccess) return err;
-
-  const int tiles_x = (w + kTW - 1) / kTW;
-  const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
-  const int nseg = (depth + seg - 1) / seg;
-  const size_t smem = sizeof(bf16) * ((size_t)3 * Cp * (9 * Fp_in + 8) +
-                                      (size_t)kHalo * (Fp_in + 8)) +
-                      sizeof(float) * kWarps * 16 * 2;
-  err = cudaFuncSetAttribute(convcomb_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const bf16* ge_ = (const bf16*)ge;
+  auto dx_at = [&](auto kernel_launch) {
+    return kernel_launch(ge_, (const bf16*)wm, (const bf16*)x,
+                         (const float*)a, (const float*)b, (bf16*)dx,
+                         (float*)ab_partials, (float*)dab, N, C, F, depth, h,
+                         w, relu, seg, s);
+  };
+  err = Cp == 16 ? (Fp == 16 ? dx_at(launch_dx<16, 1>)
+                             : dx_at(launch_dx<16, 2>))
+                 : (Fp == 16 ? dx_at(launch_dx<32, 1>)
+                             : dx_at(launch_dx<32, 2>));
   if (err != cudaSuccess) return err;
-  dim3 grid(tiles, (N / depth) * nseg);
-  convcomb_kernel<true><<<grid, kThreads, smem, s>>>(
-      (const bf16*)ge, (const bf16*)wkb, (const float*)a, (const float*)b,
-      (const bf16*)x, (bf16*)dx, (float*)ab_partials, F, Fp_in, C, Cp,
-      depth, h, w, relu, seg, nseg, tiles_x);
-  err = cudaGetLastError();
+  err = de::launch_conv_dw_input((const bf16*)x, (const float*)a,
+                                 (const float*)b, (bf16*)u, N, C, Cp, h * w,
+                                 relu ? de::kActRelu : de::kActNone, s);
   if (err != cudaSuccess) return err;
-  stats_reduce_kernel<<<C, 256, 0, s>>>((const float*)ab_partials,
-                                         (float*)dab, grid.x * grid.y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t dw_smem =
-      sizeof(bf16) * ((size_t)kHalo * (Cp + 8) + (size_t)kTH * kTW * (Mp + 8));
-  err = cudaFuncSetAttribute(convcomb_dw_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dw_smem);
-  if (err != cudaSuccess) return err;
-  convcomb_dw_kernel<<<dw_blocks, kDwThreads, dw_smem, s>>>(
-      (const bf16*)ge, (const bf16*)x, (const float*)a, (const float*)b,
-      (float*)dw_partials, N, C, Cp, F, Mp, depth, h, w, relu, tiles_x,
-      tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int elems = Mp * 9 * Cp;
-  dw_reduce_kernel<<<(elems + 255) / 256, 256, 0, s>>>(
-      (const float*)dw_partials, (float*)dw, dw_blocks, elems);
-  return cudaGetLastError();
+  const de::DwArgs p{ge_, (const bf16*)u, N, C, Cp, F, 3, depth, h, w};
+#define DE_DW(np)                                                            \
+  de::launch_conv_dw<np>(p, (float*)dw_partials, (float*)dw, dw_blocks,      \
+                         nsplit, wgs, s)
+  if (Np == 96) return DE_DW(96);
+  DE_SWITCH16(Np, DE_DW)
+#undef DE_DW
 }

@@ -29,6 +29,22 @@ gates (``jax.default_backend() == "tpu"``, a single device, the strip
 width, ``B*D >= 192``, ``(h*w) % 128 == 0``) are TPU measurements and do
 not carry over: on CUDA a bf16 model runs the kernels at every batch and
 size. ``use_kernels = False`` runs the same routes on the plain versions.
+
+Three more keys route as in JAX. ``sweep_dtype`` ("auto", "float32",
+"bfloat16") is the plane sweep's compute dtype (``_sweep_dtype``): "auto"
+follows ``dtype``; "float32" keeps a bf16 model's sweep on the f32 plain
+version, exact at identity rotation, and leaves the bf16 kernel out.
+``conv3d_flat`` False is JAX's 5-D Base3D route: "auto" convcomb off, and
+the port's flat stack of stacked-tap convs with its eager combine, which
+computes the 5-D form's function (``conv3d_path`` "flat"). ``diffhomo``
+False runs no sweep: the cost is the reference frame's features and the
+diagonal warp is the gather form on every view
+(``ops/plane_sweep.warp_feature_volume_batched``, from
+``model_input["unit_ray"]``); the BV head then takes ``feature_dim``
+inputs, as flax infers there.
+
+Every forward runs with TF32 off (``utils/precision.no_tf32``): an f32
+conv or matmul is full f32 whatever the caller's global flags.
 """
 
 from __future__ import annotations
@@ -40,10 +56,13 @@ from depthestimation_tpu_torch.models.base3d import Base3D
 from depthestimation_tpu_torch.models.decoder import BaseDecoder
 from depthestimation_tpu_torch.models.encoder import BaseEncoder
 from depthestimation_tpu_torch.models.layers import Conv, avg_pool, leaky_relu
-from depthestimation_tpu_torch.ops.plane_sweep import \
-    plane_sweep_and_warp_batched
+from depthestimation_tpu_torch.ops.plane_sweep import (
+    plane_sweep_and_warp_batched, warp_feature_volume_batched)
+from depthestimation_tpu_torch.utils import precision
 
 NMODES = ("exp7", "exp7_lc")
+_SWEEP_DTYPES = {"auto": "auto", "float32": torch.float32,
+                 "bfloat16": torch.bfloat16}
 
 
 class BaseModelNet(nn.Module):
@@ -54,12 +73,19 @@ class BaseModelNet(nn.Module):
                  nmode: str = "exp7", bn_avg: bool = False,
                  sigma_soft_max: float = 10.0, n_views: int = 2,
                  use_lc_prob: float = 0.7, dtype=None, convbn2d="auto",
-                 convcomb_pallas="auto", combine_pallas="auto"):
+                 convcomb_pallas="auto", combine_pallas="auto",
+                 sweep_dtype="auto", conv3d_flat: bool = True,
+                 diffhomo: bool = True):
         super().__init__()
         if nmode not in NMODES:
             raise NotImplementedError(
                 f"nmode {nmode!r} is not ported yet: the port runs "
                 f"{NMODES} (see ROADMAP.md, queue 1)")
+        if sweep_dtype not in _SWEEP_DTYPES:
+            raise ValueError(f"sweep_dtype {sweep_dtype!r} is not one of "
+                             f"{tuple(_SWEEP_DTYPES)}")
+        self.sweep_dtype = _SWEEP_DTYPES[sweep_dtype]
+        self.conv3d_flat, self.diffhomo = bool(conv3d_flat), bool(diffhomo)
         self.feature_dim, self.d, self.nmode = feature_dim, d, nmode
         self.sigma_soft_max = sigma_soft_max
         self.use_lc_prob = use_lc_prob
@@ -76,7 +102,8 @@ class BaseModelNet(nn.Module):
         self.base_decoder = BaseDecoder(
             d, feature_dim, int(32 * mul), 3, dtype,
             convbn2d if convbn2d in (True, "interpret") else False)
-        self.conv0 = Conv(d, d, 3, 1, 1, dtype=dtype)
+        self.conv0 = Conv(d if diffhomo else feature_dim, d, 3, 1, 1,
+                          dtype=dtype)
         self.conv0_1 = Conv(d, d, 3, 1, 1, dtype=dtype)
         self.conv0_2 = Conv(d, d, 3, 1, 1, dtype=dtype)
         in_ch = 2 + (nmode == "exp7_lc") + n_views
@@ -86,14 +113,24 @@ class BaseModelNet(nn.Module):
                                combine=self._resolved_combine_pallas())
 
     def _resolved_convcomb_pallas(self):
+        if not self.conv3d_flat:
+            return False
         if self.convcomb_pallas != "auto":
             return self.convcomb_pallas
         return self.dtype == torch.bfloat16
 
     def _resolved_combine_pallas(self):
+        if not self.conv3d_flat:
+            return False
         if self.combine_pallas != "auto":
             return self.combine_pallas
         return False
+
+    def _sweep_dtype(self):
+        """The sweep's compute dtype (JAX ``_sweep_dtype``)."""
+        if self.sweep_dtype == "auto":
+            return self.dtype or torch.float32
+        return self.sweep_dtype
 
     def conv3d_path(self, batch: int = 0, depth: int = 0, h: int = 0,
                     w: int = 0) -> str:
@@ -167,14 +204,24 @@ class BaseModelNet(nn.Module):
                 generator: torch.Generator | None = None) -> dict:
         """Eval or train forward (``self.training``). ``generator`` feeds
         the train-mode ``prev_lc`` drop of exp7_lc; nothing else draws."""
+        with precision.no_tf32():
+            return self._forward(model_input, generator)
+
+    def _forward(self, model_input, generator):
         rgb = model_input["rgb"]
         feat1, feat_raw, feat_all = self._encode(rgb)
         d_candi = torch.as_tensor(model_input["d_candi"],
                                   dtype=torch.float32, device=rgb.device)
-        cost, warped = plane_sweep_and_warp_batched(
-            feat_all, feat_raw, d_candi, model_input["src_cam_poses"],
-            model_input["intrinsics"], self.sigma_soft_max,
-            dtype=self.dtype or torch.float32, use_kernel=self.use_kernels)
+        if self.diffhomo:
+            cost, warped = plane_sweep_and_warp_batched(
+                feat_all, feat_raw, d_candi, model_input["src_cam_poses"],
+                model_input["intrinsics"], self.sigma_soft_max,
+                dtype=self._sweep_dtype(), use_kernel=self.use_kernels)
+        else:
+            cost = feat_all[:, -1, :-3]
+            warped = warp_feature_volume_batched(
+                feat_raw, d_candi, model_input["src_cam_poses"],
+                model_input["intrinsics"], model_input["unit_ray"])
         bv = self._bv_head(cost)
 
         feats_dec = [feat_all[:, -1, :-3], feat1[:, -1], rgb[:, -1]]

@@ -11,6 +11,12 @@ from depthestimation_tpu_torch.models.layers import init_weights
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
+def _flag(name: str, value) -> bool:
+    if not isinstance(value, bool):
+        raise ValueError(f"{name} takes true or false, got {value!r}")
+    return value
+
+
 def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
     """Build ``cfg.data.model_name`` on ``device`` (the card unless the
     caller names the CPU; without a card the default raises) in eval mode
@@ -23,8 +29,12 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
     The compute dtype is ``tpu.dtype``; ``tpu.convbn2d``,
     ``tpu.convcomb_pallas`` and ``tpu.combine_pallas`` (each "auto" by
     default) route the fused 2D ConvBN layers, the Base3D stack and the
-    flat stack's depth-tap combine (``BaseModelNet``); the other ``tpu``
-    keys are TPU-only and ignored (``config.IGNORED_TPU_KEYS``). With
+    flat stack's depth-tap combine; ``tpu.sweep_dtype`` ("auto") is the
+    sweep's compute dtype, ``tpu.conv3d_flat`` (True) False takes JAX's
+    5-D Base3D route (the port's flat stack) and ``var.diffhomo`` (True)
+    False runs no sweep (``BaseModelNet``); a value they do not take
+    raises ``ValueError``. The other ``tpu`` keys are TPU-only and ignored
+    (``config.IGNORED_TPU_KEYS``). With
     ``seed`` the weights are drawn from a ``torch.Generator`` seeded with
     it; without, they are left for ``load_state_dict``.
     """
@@ -48,7 +58,10 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
         use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype,
         convbn2d=tpu.get("convbn2d", "auto"),
         convcomb_pallas=tpu.get("convcomb_pallas", "auto"),
-        combine_pallas=tpu.get("combine_pallas", "auto"))
+        combine_pallas=tpu.get("combine_pallas", "auto"),
+        sweep_dtype=tpu.get("sweep_dtype", "auto"),
+        conv3d_flat=_flag("tpu.conv3d_flat", tpu.get("conv3d_flat", True)),
+        diffhomo=_flag("var.diffhomo", cfg.var.get("diffhomo", True)))
     if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
         raise NotImplementedError("the gather sweep is not ported yet "
                                   "(ROADMAP.md, queue 1)")

@@ -18,6 +18,8 @@ attribute names (``extractor.Conv_0`` ... ``Conv_11``, ``estimator.Conv_0``
 the plain versions on a CPU one), False the plain autograd form of
 ``ops/correlation.py`` on any device. JAX runs its XLA form here because
 its Pallas kernel measured slower on a TPU; that gate does not carry over.
+The forward runs with TF32 off (``utils/precision.no_tf32``): the model is
+f32 and its bounds are f32 ones.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from depthestimation_tpu_torch.ops.correlation import correlation_batched
 from depthestimation_tpu_torch.ops.correlation_kernel import correlate
 from depthestimation_tpu_torch.ops.resample import (
     grid_sample_pixel, resize_bilinear_align_corners)
+from depthestimation_tpu_torch.utils import precision
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -215,6 +218,10 @@ class PWCLite(nn.Module):
         return flows[::-1]
 
     def forward(self, x: torch.Tensor, with_bk: bool = False):
+        with precision.no_tf32():
+            return self._forward(x, with_bk)
+
+    def _forward(self, x, with_bk):
         n = x.shape[1] // 3
         pyramids = [self.extractor(x[:, 3 * i:3 * i + 3]) + [
             x[:, 3 * i:3 * i + 3]] for i in range(n)]

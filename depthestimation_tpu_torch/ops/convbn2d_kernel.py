@@ -29,12 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from depthestimation_tpu_torch.ops import cuda_lib
+from depthestimation_tpu_torch.ops.conv_gemm import ceil_div as _ceil_div
+from depthestimation_tpu_torch.ops.conv_gemm import dw_split
+from depthestimation_tpu_torch.ops.conv_gemm import round16 as _round16
 
 ACTS = ("none", "relu", "leaky")
 _MAX_CH = 80        # csrc/convbn2d.cu kMaxMT * 16
-_TILE = (8, 16)     # output pixels per unit of the conv kernels (kTH, kTW)
-_DW_TILE = (4, 16)  # pixels per unit of the weight-gradient kernel
-_DW_SLOTS = 16 * 5  # (m16, n16) tiles one weight-gradient block holds
+_TILE = (8, 16)     # pixels per unit of every kernel (kTH, kTW; kDwTH, kDwTW)
 
 
 def _act(v: torch.Tensor, act: str) -> torch.Tensor:
@@ -104,14 +105,6 @@ def convbn2d_block_bwd_plain(x, w, a, b, y, gy, gstats, act: str = "none"):
     return dx, dw, da, db
 
 
-def _round16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
-def _ceil_div(p: int, q: int) -> int:
-    return -(-p // q)
-
-
 def _units(n: int, h: int, w: int, tile) -> int:
     return n * _ceil_div(h, tile[0]) * _ceil_div(w, tile[1])
 
@@ -165,7 +158,8 @@ def _fwd(x, w, a, b, act):
 
 
 def convbn2d_block_bwd(x, w, a, b, y, gy, gstats, act: str = "none"):
-    """The backward kernels (``csrc/convbn2d.cu``, ``convbn2d_bwd``) on
+    """The backward kernels (``csrc/convbn2d.cu``, ``convbn2d_bwd``: both
+    gradients on wgmma, W read and dW written in the module's layout) on
     CUDA tensors: the contract of ``convbn2d_block_bwd_plain``; y, gy bf16
     and gstats f32, contiguous; C, F <= 80. Returns (dx, dw [F, C, 3, 3]
     f32, da, db)."""
@@ -180,31 +174,28 @@ def convbn2d_block_bwd(x, w, a, b, y, gy, gstats, act: str = "none"):
             raise ValueError(f"convbn2d_block backward: {name} must be a "
                              f"contiguous {dt} {shape} tensor on {x.device}")
     dev = x.device
-    cp, fp = _round16(c), _round16(f)
-    # data-gradient weights [Cp, 9, Fp]: wkb[c, s, f] = W[f, c, 8 - s]
-    wkb = torch.zeros((cp, 9, fp), dtype=torch.bfloat16, device=dev)
-    wkb[:c, :, :f] = w.flip(-1).flip(-2).permute(1, 2, 3, 0).reshape(c, 9, f)
-    pairs = (fp // 16) * (9 * cp // 16)
-    nsplit = _ceil_div(pairs, _DW_SLOTS)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    dw_blocks = max(1, min(_units(n, h, wd, _DW_TILE), n_sm // nsplit))
+    nsplit, wgs = dw_split(9 * _round16(c))
+    dw_blocks = max(1, min(_units(n, h, wd, _TILE),
+                           cuda_lib.sm_count(dev) // nsplit))
+    cap = _units(n, h, wd, _TILE)
+    ge = torch.empty_like(y)
+    u = torch.empty((n, h * wd, _round16(c)), dtype=torch.bfloat16,
+                    device=dev)
     dx = torch.empty_like(x)
     dab = torch.empty((c, 2), dtype=torch.float32, device=dev)
-    ab_partials = torch.empty((c, _units(n, h, wd, _TILE), 2),
+    ab_partials = torch.empty((c, cap, 2), dtype=torch.float32, device=dev)
+    dw = torch.empty((f, c, 3, 3), dtype=torch.float32, device=dev)
+    dw_partials = torch.empty((dw_blocks, 9 * _round16(c), _round16(f)),
                               dtype=torch.float32, device=dev)
-    dw = torch.empty((fp, 9, cp), dtype=torch.float32, device=dev)
-    dw_partials = torch.empty((dw_blocks, fp, 9, cp), dtype=torch.float32,
-                              device=dev)
-    s01 = gstats.t().contiguous()
     cuda_lib.library().call(
-        "convbn2d_bwd", x.data_ptr(), wkb.data_ptr(), a.data_ptr(),
-        b.data_ptr(), y.data_ptr(), gy.data_ptr(), s01.data_ptr(),
-        dx.data_ptr(), dab.data_ptr(), ab_partials.data_ptr(), dw.data_ptr(),
-        dw_partials.data_ptr(), n, c, cp, f, fp, h, wd, ACTS.index(act),
-        dw_blocks, nsplit, cuda_lib.stream_ptr(dev))
+        "convbn2d_bwd", x.data_ptr(), w.data_ptr(), a.data_ptr(),
+        b.data_ptr(), y.data_ptr(), gy.data_ptr(), gstats.data_ptr(),
+        ge.data_ptr(), u.data_ptr(), dx.data_ptr(), dab.data_ptr(),
+        ab_partials.data_ptr(),
+        dw.data_ptr(), dw_partials.data_ptr(), n, c, f, h, wd,
+        ACTS.index(act), cap, dw_blocks, nsplit, wgs,
+        cuda_lib.stream_ptr(dev))
     convbn2d_block.bwd_launches += 1
-    # dW [Fp, 9, Cp] -> the conv weight's [F, C, 3, 3]
-    dw = dw[:f, :, :c].permute(0, 2, 1).reshape(f, c, 3, 3)
     return dx, dw, dab[:, 0], dab[:, 1]
 
 

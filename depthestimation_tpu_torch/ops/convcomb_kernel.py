@@ -21,8 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from depthestimation_tpu_torch.ops import cuda_lib
+from depthestimation_tpu_torch.ops.conv_gemm import ceil_div as _ceil_div
+from depthestimation_tpu_torch.ops.conv_gemm import dw_split
+from depthestimation_tpu_torch.ops.conv_gemm import round16 as _round16
 
 _TILE = (4, 16)    # output pixels per block, rows x cols (csrc kTH, kTW)
+_DW_TILE = (8, 16)  # pixels per unit of the weight gradient (kDwTH, kDwTW)
 _MAX_F = 32        # csrc/convcomb.cu kMaxF
 
 
@@ -142,26 +146,22 @@ def _check(x, wm, a, b, depth, h, w):
                          f"got {wm.shape[0] // 3}")
 
 
-def _round16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def pixel_tiles(h: int, w: int) -> int:
     return _ceil_div(h, _TILE[0]) * _ceil_div(w, _TILE[1])
 
 
-def segment_rows(items: int, depth: int, tiles: int, n_sm: int) -> int:
+def segment_rows(items: int, depth: int, tiles: int, n_sm: int,
+                 lengths=(16, 8), per_sm: int = 8) -> int:
     """Output rows per block. A block streams its depth segment and
-    normalizes each input row once, so a long segment saves rebuilds (one
-    halo row per side: (seg + 2) / seg builds per output row); but the grid
-    must still fill the card. Take the longest of 16, 8, 4 rows that gives
-    at least 8 blocks per SM, else 4."""
-    for seg in (16, 8):
-        if tiles * items * _ceil_div(depth, seg) >= 8 * n_sm:
+    stages each input row once, so a long segment saves rebuilds (one halo
+    row per side: (seg + 2) / seg builds per output row) and, in the
+    backward, loads of the weights; but the grid must still fill the card.
+    Take the longest of ``lengths`` that gives at least ``per_sm`` blocks
+    per SM, else 4. The forward takes 16 or 8 rows at 8 blocks per SM; the
+    backward, whose blocks read all three taps' weights first, up to a
+    whole item's depth at 4 blocks per SM."""
+    for seg in lengths:
+        if tiles * items * _ceil_div(depth, seg) >= per_sm * n_sm:
             return seg
     return 4
 
@@ -212,20 +212,21 @@ class _ConvComb(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _grid(n: int, depth: int, h: int, w: int, device):
-    """(segment rows, blocks) of the ring kernel's launch."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+def _grid(n: int, depth: int, h: int, w: int, device, backward=False):
+    """(segment rows, blocks) of the ring kernels' launch."""
     tiles = pixel_tiles(h, w)
-    seg = segment_rows(n // depth, depth, tiles, n_sm)
+    seg = segment_rows(n // depth, depth, tiles, cuda_lib.sm_count(device),
+                       *(((64, 32, 16, 8), 4) if backward else ()))
     return seg, tiles * (n // depth) * _ceil_div(depth, seg)
 
 
 def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
                      w: int, relu_in: bool = False):
-    """The backward kernels (``csrc/convcomb.cu``, ``convcomb_bwd``) on
+    """The backward kernels (``csrc/convcomb.cu``, ``convcomb_bwd``: both
+    gradients on wgmma, wm read and dW written in the module's layout) on
     CUDA tensors: the contract of ``convbn_block_bwd_plain``; y, gy bf16
-    and gstats f32, contiguous; C <= 32. Returns (dx, dwm [3F, C, 3, 3] f32,
-    da, db)."""
+    and gstats f32, contiguous; C <= 32. Returns (dx, dwm [3F, C, 3, 3]
+    f32, da, db)."""
     _check(x, wm, a, b, depth, h, w)
     n, c, hw = x.shape
     f = wm.shape[0] // 3
@@ -240,32 +241,28 @@ def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
             raise ValueError(f"convbn_block backward: {name} must be a "
                              f"contiguous {dt} {shape} tensor on {x.device}")
     dev = x.device
-    cp, fpi, mp = _round16(c), _round16(f), _round16(3 * f)
-    # data-gradient weights [3, Cp, 9, Fp_in]: slot q holds tap 2 - q,
-    # flipped 3x3 and transposed (the forward ring's taps in reverse order)
-    wt = wm.reshape(3, f, c, 3, 3).flip(0).flip(-1).flip(-2)
-    wkb = torch.zeros((3, cp, 9, fpi), dtype=torch.bfloat16, device=dev)
-    wkb[:, :c, :, :f] = wt.permute(0, 2, 3, 4, 1).reshape(3, c, 9, f)
-    seg, nblk = _grid(n, depth, h, w, dev)
-    dw_blocks = min(n * pixel_tiles(h, w),
-                    torch.cuda.get_device_properties(dev).multi_processor_count)
+    seg, nblk = _grid(n, depth, h, w, dev, backward=True)
+    nsplit, wgs = dw_split(9 * _round16(c))
+    units = n * _ceil_div(h, _DW_TILE[0]) * _ceil_div(w, _DW_TILE[1])
+    dw_blocks = max(1, min(units, cuda_lib.sm_count(dev) // nsplit))
     ge = torch.empty_like(y)
+    u = torch.empty((n, h * w, _round16(c)), dtype=torch.bfloat16,
+                    device=dev)
     dx = torch.empty_like(x)
     dab = torch.empty((c, 2), dtype=torch.float32, device=dev)
     ab_partials = torch.empty((c, nblk, 2), dtype=torch.float32, device=dev)
-    dw = torch.empty((mp, 9, cp), dtype=torch.float32, device=dev)
-    dw_partials = torch.empty((dw_blocks, mp, 9, cp), dtype=torch.float32,
-                              device=dev)
+    dwm = torch.empty((3 * f, c, 3, 3), dtype=torch.float32, device=dev)
+    dw_partials = torch.empty((dw_blocks, 9 * _round16(c), _round16(3 * f)),
+                              dtype=torch.float32, device=dev)
     cuda_lib.library().call(
-        "convcomb_bwd", x.data_ptr(), wkb.data_ptr(), a.data_ptr(),
+        "convcomb_bwd", x.data_ptr(), wm.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), gy.data_ptr(), gstats.data_ptr(),
-        ge.data_ptr(), dx.data_ptr(), dab.data_ptr(), ab_partials.data_ptr(),
-        dw.data_ptr(), dw_partials.data_ptr(), n, c, cp, f, fpi, mp, depth,
-        h, w, int(bool(relu_in)), seg, dw_blocks,
+        ge.data_ptr(), u.data_ptr(), dx.data_ptr(), dab.data_ptr(),
+        ab_partials.data_ptr(),
+        dwm.data_ptr(), dw_partials.data_ptr(), n, c, f, depth, h, w,
+        int(bool(relu_in)), seg, dw_blocks, nsplit, wgs,
         cuda_lib.stream_ptr(dev))
     convbn_block.bwd_launches += 1
-    # dW rows t*F + f, columns (kh*3 + kw)*Cp + c -> wm's [3F, C, 3, 3]
-    dwm = dw[:3 * f, :, :c].permute(0, 2, 1).reshape(3 * f, c, 3, 3)
     return dx, dwm, dab[:, 0], dab[:, 1]
 
 

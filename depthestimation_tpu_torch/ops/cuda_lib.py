@@ -13,6 +13,7 @@ machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,9 +37,9 @@ _SIGNATURES = {
     "sweep_stage2_bwd": [_VP] * 10 + [_I] * 6 + [_VP],
     "convcomb_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    "convcomb_bwd": [_VP] * 13 + [_I] * 12 + [_VP],
+    "convcomb_bwd": [_VP] * 14 + [_I] * 11 + [_VP],
     "convbn2d_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
-    "convbn2d_bwd": [_VP] * 12 + [_I] * 10 + [_VP],
+    "convbn2d_bwd": [_VP] * 14 + [_I] * 10 + [_VP],
     "tap_combine_fwd": [_VP] * 2 + [_I] * 5 + [_VP],
     "tap_combine_bwd": [_VP] * 2 + [_I] * 5 + [_VP],
     "correlation_fwd": [_VP] * 3 + [_I] * 5 + [_VP],
@@ -137,6 +138,20 @@ def library() -> KernelLibrary:
             log = _build(srcs, target)
         _library = KernelLibrary(target, time.perf_counter() - t0, log)
         return _library
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (asked once)."""
+    import torch
+    d = torch.device(device)
+    return _sm_count(d.index if d.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream_ptr(device) -> int:

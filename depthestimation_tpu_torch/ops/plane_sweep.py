@@ -164,3 +164,50 @@ def plane_sweep_and_warp_batched(feat_all: torch.Tensor,
     warped = torch.cat([diag_nv.reshape(b, v, d, h, w),
                         feat_raw[:, -1:].to(f32)], dim=1)
     return cost, warped
+
+
+def homography_pixels(d_candi: torch.Tensor, rot: torch.Tensor,
+                      tra: torch.Tensor, intr: torch.Tensor,
+                      unit_rays: torch.Tensor) -> torch.Tensor:
+    """Projected (x, y) array-index coordinates of every depth plane,
+    batched over views (``_homography_pixels``): rot [N, 3, 3], tra [N, 3],
+    intr [N, 3, 3], unit_rays [N, 3, HW] -> [N, D, HW, 2], f32."""
+    term1 = torch.matmul(intr, tra[..., None])                     # [N,3,1]
+    term2 = torch.matmul(torch.matmul(intr, rot), unit_rays)       # [N,3,HW]
+    d = d_candi.to(term2.dtype)
+    p = term1[:, :, None, :] + term2[:, :, None, :] * d[None, None, :, None]
+    p = p / (p[:, 2:3] + 1e-10)                                    # [N,3,D,HW]
+    return torch.stack([p[:, 0] - 0.5, p[:, 1] - 0.5], dim=-1)
+
+
+def warp_feature_volume_batched(feat_raw: torch.Tensor,
+                                d_candi: torch.Tensor, poses: torch.Tensor,
+                                intr: torch.Tensor,
+                                unit_rays: torch.Tensor) -> torch.Tensor:
+    """The gather form of the diagonal feature warp on every view
+    (``warp_feature_volume`` vmapped over the batch, as
+    ``BaseModelNet._warped_features`` runs it when ``diffhomo`` is off):
+    depth plane d samples feature channel d at the depth-d homography.
+
+    feat_raw [B, T, D, h, w]; poses [B, T, 4, 4]; intr [B, 3, 3];
+    unit_rays [B, 3, h*w]. Returns [B, T, D, h, w] f32.
+    """
+    b, t, d, h, w = feat_raw.shape
+    n = b * t
+    f32 = torch.float32
+    d_candi = torch.as_tensor(d_candi, dtype=f32, device=feat_raw.device)
+    if d_candi.numel() != d:
+        raise ValueError(f"the diagonal warp needs C == D: {d} feature "
+                         f"channels, {d_candi.numel()} depth planes")
+    pix = homography_pixels(
+        d_candi,
+        poses[:, :, :3, :3].reshape(n, 3, 3).to(f32),
+        poses[:, :, :3, 3].reshape(n, 3).to(f32),
+        intr.to(f32).repeat_interleave(t, dim=0),
+        unit_rays.to(f32).repeat_interleave(t, dim=0))          # [N,D,HW,2]
+    flat = _pad_flat(feat_raw.reshape(n, d, h, w).to(f32))      # [N,D,HWp]
+    idx, wt = _tap_indices_weights(pix, h, w)                   # [4,N,D,HW]
+    out = 0.0
+    for k in range(4):      # channel d at plane d's taps: the diagonal
+        out = out + torch.gather(flat, -1, idx[k]) * wt[k]
+    return out.reshape(b, t, d, h, w)

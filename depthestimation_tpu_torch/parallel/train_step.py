@@ -19,6 +19,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
+from depthestimation_tpu_torch.utils import precision
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -94,17 +96,19 @@ def make_train_step(loss_fn: Callable,
     ``trainer.default.fused_lc_fn``), run after the update on the detached
     refined DPVs; its results land in ``aux["prev_lc_left"]`` and
     ``aux["prev_lc_right"]``. It draws from ``generator`` after the two
-    drops. Without it the step and its draws are unchanged."""
+    drops. Without it the step and its draws are unchanged. The forward,
+    loss and backward run with TF32 off (``utils/precision.no_tf32``)."""
 
     def step(state: TrainState, mi_l: dict, mi_r: dict, gt_l: dict,
              gt_r: dict, generator: torch.Generator | None = None):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        out_l = model(mi_l, generator=generator)
-        out_r = model(mi_r, generator=generator)
-        loss = loss_fn([out_l, out_r], [gt_l, gt_r])
-        loss.backward()
+        with precision.no_tf32():
+            out_l = model(mi_l, generator=generator)
+            out_r = model(mi_r, generator=generator)
+            loss = loss_fn([out_l, out_r], [gt_l, gt_r])
+            loss.backward()
         opt.step()
         state.step += 1
         ref_l = out_l["output_refined"][-1]

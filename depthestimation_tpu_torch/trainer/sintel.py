@@ -31,6 +31,7 @@ from depthestimation_tpu_torch.ops.resample import (grid_sample_pixel,
                                                     resize_linear)
 from depthestimation_tpu_torch.parallel.train_step import set_learning_rate
 from depthestimation_tpu_torch.trainer.checkpoint import save_checkpoint
+from depthestimation_tpu_torch.utils import precision
 
 
 # -- flow metrics / geometry helpers ------------------------------------
@@ -155,12 +156,14 @@ class SintelTrainer:
 
     def _step(self, img_pair: torch.Tensor, draws=None):
         """One Adam step at ``self.lr``: (loss, terms without the mask),
-        both detached."""
+        both detached. The forward, loss and backward run in full f32
+        (``utils/precision.no_tf32``), the precision of every bound."""
         self.model.train()
         set_learning_rate(self.optimizer, self.lr)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, terms, _ = self._loss_terms(img_pair, draws)
-        loss.backward()
+        with precision.no_tf32():
+            loss, terms, _ = self._loss_terms(img_pair, draws)
+            loss.backward()
         self.optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in terms.items()
                                if k != "noc_mask"}
@@ -198,7 +201,7 @@ class SintelTrainer:
             return np.nan
         self.model.eval()
         epes = []
-        with torch.no_grad():
+        with torch.no_grad(), precision.no_tf32():
             for i_step, data in enumerate(self.val_loader):
                 if i_step >= self.valid_size:
                     break

@@ -159,11 +159,16 @@ def test_sweep_backward_kernel_matches_plain(dev, n, v, c1, d, h, w):
                                    atol=3e-2 * p_.abs().max().item())
 
 
-@pytest.mark.parametrize("n,depth,c,f,h,w", [(16, 8, 5, 32, 12, 16),
-                                             (16, 8, 32, 1, 7, 9),
-                                             (40, 20, 8, 16, 9, 11),
-                                             (3, 1, 5, 8, 6, 10),
-                                             (64, 64, 32, 32, 64, 96)])
+# the forward's shapes, then the wgmma tiling's edges: widths and heights
+# no multiple of the 8x16 unit, one row, C = 32 with F = 32 at a ragged
+# width
+_CC_BWD_SHAPES = [(16, 8, 5, 32, 12, 16), (16, 8, 32, 1, 7, 9),
+                  (40, 20, 8, 16, 9, 11), (3, 1, 5, 8, 6, 10),
+                  (64, 64, 32, 32, 64, 96), (8, 4, 32, 32, 9, 23),
+                  (1, 1, 16, 1, 5, 7), (6, 3, 17, 11, 3, 33)]
+
+
+@pytest.mark.parametrize("n,depth,c,f,h,w", _CC_BWD_SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
 def test_convcomb_backward_kernel_matches_plain(dev, n, depth, c, f, h, w,
                                                relu):
@@ -329,7 +334,13 @@ def test_convbn2d_kernel_matches_plain(dev, n, c, f, h, w, act):
     torch.testing.assert_close(st, st_p, rtol=3e-2, atol=1e-2 * n * h * w)
 
 
-@pytest.mark.parametrize("n,c,f,h,w", _C2_SHAPES)
+# the forward's shapes, then the wgmma tiling's edges: C = F = 80, one
+# image, widths no multiple of the 8x16 unit
+_C2_BWD_SHAPES = _C2_SHAPES + [(1, 80, 80, 9, 37), (1, 16, 1, 3, 5),
+                               (3, 48, 17, 17, 33)]
+
+
+@pytest.mark.parametrize("n,c,f,h,w", _C2_BWD_SHAPES)
 @pytest.mark.parametrize("act", c2.ACTS)
 def test_convbn2d_backward_kernel_matches_plain(dev, n, c, f, h, w, act):
     """dx within 3% of max where |v| > 0.02 (away from the activation's
@@ -356,6 +367,35 @@ def test_convbn2d_backward_kernel_matches_plain(dev, n, c, f, h, w, act):
             g, p_ = g[m], p_[m]
         torch.testing.assert_close(g, p_, rtol=0,
                                    atol=tol * p_.abs().max().item() + 1e-6)
+
+
+@pytest.mark.parametrize("layer", ["convbn2d", "convcomb"])
+def test_backward_kernels_repeat_bit_for_bit(dev, layer):
+    """No atomics: two launches on the same inputs give equal dx, dW, da
+    and db."""
+    gen = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    if layer == "convbn2d":
+        x, wt, a, b = _convbn2d_data(gen, 4, 64, 64, 19, 37, dev)
+        y, _ = c2.convbn2d_block_plain(x, wt, a, b, "relu")
+        args = (x, wt, a, b, y,
+                _randn(gen, *y.shape, scale=0.1).to(dev, bf),
+                _randn(gen, 64, 2, scale=1e-3).to(dev), "relu")
+        run = c2.convbn2d_block_bwd
+    else:
+        x = _randn(gen, 64, 32, 24 * 40).to(dev, bf)
+        wt = _randn(gen, 96, 32, 3, 3, scale=0.2).to(dev, bf)
+        a = (torch.rand(32, generator=gen) * 0.5 + 0.75).to(dev)
+        b = _randn(gen, 32, scale=0.1).to(dev)
+        y, _ = ck.convbn_block_plain(x, wt, a, b, 16, 24, 40, True)
+        args = (x, wt, a, b, y, _randn(gen, *y.shape, scale=0.1).to(dev, bf),
+                _randn(gen, 32, 2, scale=1e-3).to(dev), 16, 24, 40, True)
+        run = ck.convbn_block_bwd
+    first = run(*args)
+    second = run(*args)
+    torch.cuda.synchronize()
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
 
 
 def test_convbn2d_autograd_runs_the_kernels(dev):
