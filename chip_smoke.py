@@ -17,9 +17,12 @@ Phases, one line each (a failed phase exits non-zero before the result):
    library call's where one computes the same function (cuDNN's conv),
    and the bound (bytes over 3.35 TB/s or operations over the peak of
    their type, 989 bf16 tensor-core TFLOP/s or 67 f32 TFLOP/s, whichever
-   is larger); each backward of the two fused conv blocks twice, bit-equal,
-   with its device time split into the data and the weight gradient
-   (``conv_bwd_split.kernel_split``, ``torch.profiler``); the correlation
+   is larger); each forward and each backward of the two fused conv
+   blocks twice, bit-equal; each forward's device time beside its event
+   time (``conv_bwd_split.forward_split``, ``torch.profiler``: the host
+   work of the wrapper shows apart from the kernels) and each backward's
+   split into the data and the weight gradient (``kernel_split``); the
+   correlation
    pair at the five pyramid levels of phase 9,
    and the flat conv3d op (forward, dx, dW) at Base3D's layer shape in
    bf16 and f32 beside cuDNN's conv3d and the port's flat ``Conv3d``;
@@ -221,7 +224,7 @@ def _conv_bwd(g, u, w):
 def phase_kernels(card):
     import torch
     import torch.nn.functional as F
-    from conv_bwd_split import kernel_split
+    from conv_bwd_split import device_times, forward_split, kernel_split
     from depthestimation_tpu_torch.ops.combine_kernel import (
         tap_combine, tap_combine_bwd, tap_combine_bwd_plain,
         tap_combine_plain)
@@ -312,7 +315,12 @@ def phase_kernels(card):
                 a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
                 b = (torch.randn(c, generator=gen) * 0.1).to(dev)
                 y, st = convbn_block(x, wm, a, b, 64, h, w, relu)
+                y2, st2 = convbn_block(x, wm, a, b, 64, h, w, relu)
                 torch.cuda.synchronize()
+                check(torch.equal(y, y2) and torch.equal(st, st2),
+                      f"convbn_block N={n} C={c} F={f} relu={relu}: two "
+                      f"launches differ")
+                del y2, st2
                 y_p, st_p = convbn_block_plain(x, wm, a, b, 64, h, w, relu)
                 yf, ypf = y.float(), y_p.float()
                 err = (yf - ypf).abs().max().item()
@@ -326,7 +334,8 @@ def phase_kernels(card):
                 check(bool(st_ok), f"convbn_block N={n} C={c} F={f}: stats "
                       f"{st.tolist()[:2]} vs {st_p.tolist()[:2]}")
                 line = (f"phase 3: convbn_block N={n} C={c} F={f} HW={h * w} "
-                        f"relu={relu}: max|err| y {err:.4g} (max {scale:.4g})")
+                        f"relu={relu}: max|err| y {err:.4g} (max "
+                        f"{scale:.4g}); bit-equal over two launches")
                 if n == 512 and relu:
                     ms = cuda_ms(lambda: convbn_block(x, wm, a, b, 64, h, w,
                                                       relu), 10)
@@ -338,8 +347,16 @@ def phase_kernels(card):
                                2.0 * n * h * w * 3 * f * 9 * c)
                     rows[("convbn_block", c, f)] = row(err, ms, plain_ms,
                                                        lib_ms, bd)
-                    line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                             f"cuDNN conv3d {lib_ms:.4f} ms, bound "
+                    sp = forward_split(lambda: convbn_block(
+                        x, wm, a, b, 64, h, w, relu), 10)
+                    lib_dev = sum(device_times(
+                        lambda: F.conv3d(u5, w5, padding=1), 10).values())
+                    line += (f"; kernel {ms:.4f} ms (device "
+                             f"{sp['device_ms']:.4f} ms, of it PyTorch's own "
+                             f"kernels {sp['torch_ms']:.4f}), plain "
+                             f"{plain_ms:.4f} ms, "
+                             f"cuDNN conv3d {lib_ms:.4f} ms (device "
+                             f"{lib_dev:.4f}), bound "
                              f"{bd[0]:.4f} ms ({bd[1]}) [{card}]")
                 print(line, flush=True)
 
@@ -422,7 +439,11 @@ def phase_kernels(card):
             a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
             b = (torch.randn(c, generator=gen) * 0.1).to(dev)
             y, st = convbn2d_block(x, wt, a, b, act)
+            y2, st2 = convbn2d_block(x, wt, a, b, act)
             torch.cuda.synchronize()
+            check(torch.equal(y, y2) and torch.equal(st, st2),
+                  f"convbn2d {tag} act={act}: two forward launches differ")
+            del y2, st2
             y_p, st_p = convbn2d_block_plain(x, wt, a, b, act)
             err = (y.float() - y_p.float()).abs().max().item()
             scale = y_p.float().abs().max().item() + 1e-6
@@ -457,8 +478,9 @@ def phase_kernels(card):
                       f"{e} > {bnd}")
                 errs.append(e)
             line = (f"phase 3: convbn2d {tag} N={n} C={c} F={f} {h2}x{w2} "
-                    f"act={act}: max|err| y {err:.4g} (max {scale:.4g}); "
-                    f"backward dx, dW, da, db "
+                    f"act={act}: max|err| y {err:.4g} (max {scale:.4g}), "
+                    f"forward bit-equal over two launches; backward dx, dW, "
+                    f"da, db "
                     f"{', '.join(f'{e:.4g}' for e in errs)}")
             if act == acts[0]:
                 flops = 2.0 * n * h2 * w2 * f * 9 * c
@@ -480,9 +502,16 @@ def phase_kernels(card):
                             2.0 * flops)
                 rows[("convbn2d_bwd", tag)] = row(max(errs), bms, bplain_ms,
                                                   blib_ms, bbd)
+                fsp = forward_split(
+                    lambda: convbn2d_block(x, wt, a, b, act), 10)
+                lib_dev = sum(device_times(
+                    lambda: F.conv2d(u, wt, padding=1), 10).values())
                 sp = kernel_split(lambda: convbn2d_block_bwd(*bargs))
-                line += (f"; forward kernel {ms:.4f} ms, plain "
-                         f"{plain_ms:.4f} ms, cuDNN conv2d {lib_ms:.4f} ms, "
+                line += (f"; forward kernel {ms:.4f} ms (device "
+                         f"{fsp['device_ms']:.4f} ms, of it PyTorch's own "
+                         f"kernels {fsp['torch_ms']:.4f}), plain "
+                         f"{plain_ms:.4f} ms, cuDNN conv2d {lib_ms:.4f} ms "
+                         f"(device {lib_dev:.4f}), "
                          f"bound {bd[0]:.4f} ms ({bd[1]}); backward "
                          f"bit-equal over two launches, kernel {bms:.4f} ms "
                          f"(device split: dx + (da, db) {sp['dx_ms']:.4f}, "

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Device time of the fused conv blocks' backward kernels at the B=8 train
-step's shapes, split into the data gradient and the weight gradient.
+"""Device time of the fused conv blocks' kernels at the B=8 train step's
+shapes: each backward split into the data gradient and the weight
+gradient, or (``--forward``) each forward beside cuDNN's conv.
 
-    python3 conv_bwd_split.py [--root CHECKOUT] [--tag NAME]
+    python3 conv_bwd_split.py [--forward | --segments] [--root CHECKOUT]
+                              [--tag NAME]
 
 ``CHECKOUT`` (default: this file's directory) is the tree whose
 ``depthestimation_tpu_torch`` is imported and built, so two commits can be
 held side by side in one run on one card (parent, change, change, parent).
 The shapes and inputs are those of ``chip_smoke.py`` phase 3: Base3D's
-layer (``convbn_block_bwd``) at N=512 (B=8, D=64), 64x96, C32->F32,
-C5->F32 and C32->F1, and the encoder's 2D layer (``convbn2d_block_bwd``)
-at N=16, 128x192 C=F=32 and 64x96 C=F=64.
+layer (``convbn_block``) at N=512 (B=8, D=64), 64x96, C32->F32, C5->F32
+and C32->F1, and the encoder's 2D layer (``convbn2d_block``) at N=16,
+128x192 C=F=32 and 64x96 C=F=64.
 
-Each backward runs ``ITERS`` times under ``torch.profiler``; its device
-time is summed by kernel name: a kernel whose name holds "dw" is the
+Each call runs ``ITERS`` (backward) or ``FWD_ITERS`` (forward) times
+under ``torch.profiler``; its device time
+is summed by kernel name. Backward: a kernel whose name holds "dw" is the
 weight gradient (its GEMM and its reduce), one of PyTorch's own (``at::``,
 a wrapper's weight packing) neither, every other one the data gradient
-(the fold, the dx GEMM and the (da, db) reduce). Beside the split:
-the whole call's ms from CUDA events and ``aten.convolution_backward``'s
-(cuDNN, data and weight gradients in one call) on the same normalized
-input. Prints one JSON line per shape and, last, the card's name and power
+(the fold, the dx GEMM and the (da, db) reduce); beside the split,
+``aten.convolution_backward`` (cuDNN, data and weight gradients in one
+call) on the same normalized input. Forward: the layer's kernel and its
+stats reduce, and PyTorch's own kernels in the call (a wrapper's weight
+packing) apart; beside them ``F.conv3d`` / ``F.conv2d`` (cuDNN) on the
+normalized input (its event and device ms), and the host ms a call of
+the wrapper takes to enqueue. Each row also
+has the whole call's ms from CUDA events (the wrapper's host work
+included where it is longer than the kernels'). ``--segments`` times Base3D's
+forward at each depth-segment length beside the one the wrapper picks.
+Prints one JSON line per shape and, last, the card's name and power
 limit.
 """
 
@@ -30,8 +40,10 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ITERS = 5
+FWD_ITERS = 20     # the forwards are shorter: more calls per timing
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -49,11 +61,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_split(fn, iters: int = ITERS) -> dict:
-    """{"dx_ms", "dw_ms", "torch_ms", "kernels": {name: ms}} per call of
-    ``fn`` from the profiler's device times: ``torch_ms`` is PyTorch's own
-    kernels in the call (a wrapper's weight packing), not a gradient's
-    (0.0 each if the profiler sees no device time)."""
+def host_ms(fn, iters: int) -> float:
+    """Host ms per call of ``fn`` while the card runs behind it (the
+    enqueue rate: the wrapper's Python and C work and the launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def device_times(fn, iters: int = ITERS) -> dict:
+    """{kernel name: device ms per call of ``fn``} from the profiler (empty
+    if it sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -69,10 +93,32 @@ def kernel_split(fn, iters: int = ITERS) -> dict:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
             per[ev.key] = per.get(ev.key, 0.0) + us / 1e3 / iters
+    return per
+
+
+def _own(per: dict) -> float:
+    """PyTorch's own kernels (``at::``) among ``per``'s."""
+    return sum(v for k, v in per.items() if "at::" in k)
+
+
+def kernel_split(fn, iters: int = ITERS) -> dict:
+    """{"dx_ms", "dw_ms", "torch_ms", "kernels": {name: ms}} per call of a
+    backward ``fn`` from the profiler's device times: ``torch_ms`` is
+    PyTorch's own kernels in the call (a wrapper's weight packing), not a
+    gradient's (0.0 each if the profiler sees no device time)."""
+    per = device_times(fn, iters)
     dw = sum(v for k, v in per.items() if "dw" in k)
-    own = sum(v for k, v in per.items() if "at::" in k)
+    own = _own(per)
     return {"dx_ms": sum(per.values()) - dw - own, "dw_ms": dw,
             "torch_ms": own,
+            "kernels": {k[:60]: round(v, 4) for k, v in per.items()}}
+
+
+def forward_split(fn, iters: int = ITERS) -> dict:
+    """{"device_ms", "torch_ms", "kernels"} per call of a forward ``fn``:
+    all its device time, and PyTorch's own kernels in it."""
+    per = device_times(fn, iters)
+    return {"device_ms": sum(per.values()), "torch_ms": _own(per),
             "kernels": {k[:60]: round(v, 4) for k, v in per.items()}}
 
 
@@ -84,11 +130,14 @@ def _conv_bwd(g, u, w):
         [True, True, False])
 
 
-def convcomb_cases(dev, gen):
-    """(tag, backward call, cuDNN call) of Base3D's layer shapes."""
+def convcomb_cases(dev, gen, forward=False):
+    """(tag, kernel call, cuDNN call) of Base3D's layer shapes: the
+    backward beside ``convolution_backward``, or the forward beside
+    ``F.conv3d``."""
     import torch
+    import torch.nn.functional as F
     from depthestimation_tpu_torch.ops.convcomb_kernel import (
-        convbn_block_bwd, convbn_block_plain)
+        convbn_block, convbn_block_bwd, convbn_block_plain)
     h, w, n = 64, 96, 512
     for c, f in ((32, 32), (5, 32), (32, 1)):
         relu = c != 5
@@ -97,25 +146,33 @@ def convcomb_cases(dev, gen):
             dev, torch.bfloat16)
         a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
         b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+        u = x.float() * a[None, :, None] + b[None, :, None]
+        u = (u.relu() if relu else u).to(torch.bfloat16)
+        u5 = u.reshape(n // 64, 64, c, h, w).transpose(1, 2).contiguous()
+        w5 = wm.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4).contiguous()
+        tag = f"convcomb N={n} C{c}->F{f} 64x96"
+        if forward:
+            yield (tag, lambda a_=(x, wm, a, b, 64, h, w, relu):
+                   convbn_block(*a_),
+                   lambda u_=u5, w_=w5: F.conv3d(u_, w_, padding=1))
+            continue
         y, _ = convbn_block_plain(x, wm, a, b, 64, h, w, relu)
         gy = (torch.randn(y.shape, generator=gen) * 0.1).to(dev,
                                                             torch.bfloat16)
         gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
         args = (x, wm, a, b, y, gy, gs, 64, h, w, relu)
-        u = x.float() * a[None, :, None] + b[None, :, None]
-        u = (u.relu() if relu else u).to(torch.bfloat16)
-        u5 = u.reshape(n // 64, 64, c, h, w).transpose(1, 2).contiguous()
-        w5 = wm.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4).contiguous()
         g5 = gy.reshape(n // 64, 64, f, h, w).transpose(1, 2).contiguous()
-        yield (f"convcomb N={n} C{c}->F{f} 64x96",
-               lambda a_=args: convbn_block_bwd(*a_),
+        yield (tag, lambda a_=args: convbn_block_bwd(*a_),
                lambda g_=g5, u_=u5, w_=w5: _conv_bwd(g_, u_, w_))
 
 
-def convbn2d_cases(dev, gen):
+def convbn2d_cases(dev, gen, forward=False):
+    """The same for the encoder's 2D layer (``F.conv2d`` for the
+    forward)."""
     import torch
+    import torch.nn.functional as F
     from depthestimation_tpu_torch.ops.convbn2d_kernel import (
-        convbn2d_block_bwd, convbn2d_block_plain)
+        convbn2d_block, convbn2d_block_bwd, convbn2d_block_plain)
     for tag, n, c, f, h, w in (("128x192 C=F=32", 16, 32, 32, 128, 192),
                                ("64x96 C=F=64", 16, 64, 64, 64, 96)):
         bf = torch.bfloat16
@@ -124,15 +181,53 @@ def convbn2d_cases(dev, gen):
               * (2.0 / (9 * f)) ** 0.5).to(dev, bf)
         a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
         b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+        u = (x.float() * a[None, :, None, None]
+             + b[None, :, None, None]).relu().to(bf)
+        if forward:
+            yield (f"convbn2d N={n} {tag}",
+                   lambda a_=(x, wt, a, b, "relu"): convbn2d_block(*a_),
+                   lambda u_=u, w_=wt: F.conv2d(u_, w_, padding=1))
+            continue
         y, _ = convbn2d_block_plain(x, wt, a, b, "relu")
         gy = (torch.randn(y.shape, generator=gen) * 0.1).to(dev, bf)
         gs = (torch.randn(f, 2, generator=gen) * 1e-3).to(dev)
         args = (x, wt, a, b, y, gy, gs, "relu")
-        u = (x.float() * a[None, :, None, None]
-             + b[None, :, None, None]).relu().to(bf)
         yield (f"convbn2d N={n} {tag}",
                lambda a_=args: convbn2d_block_bwd(*a_),
                lambda g_=gy, u_=u, w_=wt: _conv_bwd(g_, u_, w_))
+
+
+def segment_rows_table(dev, gen) -> None:
+    """Base3D's forward at each depth-segment length (``convcomb_fwd``'s
+    ``seg``) beside the one ``forward_segment`` picks, at B=8 and 1: one
+    JSON line per (N, C, F)."""
+    import torch
+    from depthestimation_tpu_torch.ops import convcomb_kernel as ck
+    from depthestimation_tpu_torch.ops import cuda_lib
+    h, w = 64, 96
+    for n in (512, 64):
+        for c, f in ((32, 32), (5, 32), (32, 1)):
+            x = torch.randn(n, c, h * w, generator=gen).to(
+                dev, torch.bfloat16)
+            wm = (torch.randn(3 * f, c, 3, 3, generator=gen) * 0.2).to(
+                dev, torch.bfloat16)
+            a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
+            b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+            y = torch.empty((n, f, h * w), dtype=torch.bfloat16, device=dev)
+            st = torch.empty((f, 2), device=dev)
+            ms = {}
+            for seg in (4, 8, 16, 32, 64):
+                nblk = ck.pixel_tiles(h, w) * (n // 64) * (-(-64 // seg))
+                part = torch.empty((f, nblk, 2), device=dev)
+                ptrs = (x.data_ptr(), wm.data_ptr(), a.data_ptr(),
+                        b.data_ptr(), y.data_ptr(), st.data_ptr(),
+                        part.data_ptr())
+                ms[seg] = cuda_ms(lambda s_=seg, p_=ptrs: cuda_lib.library(
+                ).call("convcomb_fwd", *p_, n, c, f, 64, h, w, 1, s_,
+                       cuda_lib.stream_ptr(dev)), FWD_ITERS)
+            print(json.dumps({"n": n, "c": c, "f": f, "seg_ms": ms,
+                              "picked": ck._grid(n, 64, h, w, dev,
+                                                 (c, f))[0]}), flush=True)
 
 
 def card_line() -> str:
@@ -148,6 +243,11 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--forward", action="store_true",
+                    help="time the forwards instead of the backwards")
+    ap.add_argument("--segments", action="store_true",
+                    help="time Base3D's forward at each depth-segment "
+                         "length instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -158,12 +258,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    if args.segments:
+        segment_rows_table(dev, gen)
+        print(card_line())
+        return 0
+    split = forward_split if args.forward else kernel_split
+    iters = FWD_ITERS if args.forward else ITERS
     for cases in (convcomb_cases, convbn2d_cases):
-        for tag, run, lib in cases(dev, gen):
+        for tag, run, lib in cases(dev, gen, args.forward):
             row = {"tag": args.tag, "shape": tag,
-                   "ms": cuda_ms(run, ITERS),
-                   "library_ms": cuda_ms(lib, ITERS)}
-            row.update(kernel_split(run))
+                   "pass": "forward" if args.forward else "backward",
+                   "ms": cuda_ms(run, iters),
+                   "library_ms": cuda_ms(lib, iters)}
+            row.update(split(run, iters))
+            if args.forward:
+                row["host_ms"] = host_ms(run, iters)
+                row["library_device_ms"] = sum(
+                    device_times(lib, iters).values())
             print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
     print(card_line())

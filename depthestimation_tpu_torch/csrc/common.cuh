@@ -28,15 +28,8 @@ __device__ inline unsigned smem_addr(const bf16* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// four 8x8 b16 matrices from shared memory (row addresses from the lanes)
-__device__ inline void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// the same at the shared-memory address ``a``
+// four 8x8 b16 matrices from shared memory at the address ``a`` (row
+// addresses from the lanes)
 __device__ inline void ldmatrix_x4_addr(unsigned (&r)[4], unsigned a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -52,27 +45,36 @@ __device__ inline void ldmatrix_x4_trans(unsigned (&r)[4], unsigned a) {
       : "r"(a));
 }
 
-// d += A (16x16, row) . B (16x8, col), bf16 in, f32 accumulate
-__device__ inline void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                 unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// resident blocks of ``kernel`` per SM at this launch shape, and the SMs
+// Before a launch of ``kernel`` with ``smem`` bytes of dynamic shared
+// memory: raise its limit and ask its resident blocks per SM and the SMs,
+// once per device; ``slots`` is the caller's own static cache (one
+// launcher, one kernel and one ``smem`` each), 0 where not asked yet: a
+// launcher runs once per layer call, and the queries are host time.
 template <typename Kernel>
-inline cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem,
-                                 int* per_sm, int* n_sm) {
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
+inline cudaError_t launch_shape(Kernel kernel, int threads, size_t smem,
+                                int (&slots)[16][2], int* per_sm,
+                                int* n_sm) {
   int dev = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 16 && slots[dev][0] > 0) {
+    *per_sm = slots[dev][0];
+    *n_sm = slots[dev][1];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 16 && *per_sm > 0) {
+    slots[dev][0] = *per_sm;
+    slots[dev][1] = *n_sm;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace de

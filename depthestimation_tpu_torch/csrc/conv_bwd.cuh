@@ -1,6 +1,8 @@
-// What the backward kernels of the fused conv blocks share (convbn2d.cu,
-// convcomb.cu): the activations and the cotangent fold, and the weight
-// gradient on wgmma, one kernel for both layers.
+// What the kernels of the fused conv blocks share (convbn2d.cu,
+// convcomb.cu): the activations, the two-step staging of a halo tile that
+// the forwards and the data gradients read their shifted operand from, the
+// cotangent fold, and the weight gradient on wgmma, one kernel for both
+// layers.
 //
 // The weight gradient is the GEMM
 //   P[s*Cp + c][col] = sum over rows n and pixels p of
@@ -152,60 +154,6 @@ __device__ inline uint4 load8(const bf16* __restrict__ p, size_t row,
   return r;
 }
 
-// A halo tile of (TH + 2) x 18 pixels around the TH x 16 tile at (ty0,
-// tx0), channels fastest (u[(yy * 18 + xx) * us + c]), of src [C, h, w]
-// (channel stride ``cs``) for c < C, zero outside the image. A job is 8
-// pixels of a halo row (the two halves of the tile's 16 columns) or its
-// two edge pixels; consecutive threads take consecutive channels, so their
-// shared-memory stores do not clash.
-template <int TH>
-__device__ inline void stage_halo(bf16* __restrict__ u, int us, int C, int h,
-                                  int w, size_t cs, int ty0, int tx0,
-                                  const bf16* __restrict__ src) {
-  constexpr int kRows = TH + 2;
-  const int njobs = C * kRows * 3;
-  for (int j0 = threadIdx.x; j0 < njobs; j0 += 4 * blockDim.x) {
-    uint4 r[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = j0 + k * blockDim.x;
-      r[k] = make_uint4(0, 0, 0, 0);
-      if (j >= njobs) continue;
-      const int c = j % C, rest = j / C;
-      const int yy = rest % kRows, part = rest / kRows;
-      const int py = ty0 + yy - 1;
-      if (py < 0 || py >= h) continue;
-      const size_t row = (size_t)c * cs + (size_t)py * w;
-      if (part < 2) {
-        unsigned ok;
-        r[k] = load8(src, row, tx0 + 8 * part, w, ok);
-      } else {                     // columns xx = 0 and 17
-        if (tx0 >= 1)
-          set_bits(r[k], 0, __bfloat16_as_ushort(src[row + tx0 - 1]));
-        if (tx0 + 16 < w)
-          set_bits(r[k], 1, __bfloat16_as_ushort(src[row + tx0 + 16]));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = j0 + k * blockDim.x;
-      if (j >= njobs) continue;
-      const int c = j % C, rest = j / C;
-      const int yy = rest % kRows, part = rest / kRows;
-      unsigned short* dst =
-          reinterpret_cast<unsigned short*>(u + (size_t)yy * 18 * us + c);
-      if (part < 2) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          dst[(1 + 8 * part + i) * us] = bf_bits(r[k], i);
-      } else {
-        dst[0] = bf_bits(r[k], 0);
-        dst[17 * us] = bf_bits(r[k], 1);
-      }
-    }
-  }
-}
-
 // 16 bytes global -> shared, asynchronous; zero filled when !valid
 __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -220,6 +168,114 @@ __device__ inline void cp_async_commit() {
 template <int N>
 __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronous, through L1; zero filled when
+// !valid
+__device__ inline void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(reinterpret_cast<const bf16*>(dst))),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ---- the halo tile of a TH x 16-pixel output tile, in two steps
+//
+// A halo tile is (TH + 2) x 18 pixels around the tile at (ty0, tx0), zero
+// outside the image. The kernels stage it in two steps, so that the copy
+// from device memory can be in flight while the block computes:
+//
+// 1. stage_halo_raw issues asynchronous copies of the raw input into a
+//    shared "raw" buffer laid out as the source, one channel row after
+//    another: for channel c and halo row yy, kRawW elements at
+//    ((c * ROWS + yy) * kRawW): the tile's 16 columns as two 16-byte copies
+//    (elements 0-15), then the pixel pairs (tx0 - 2, tx0 - 1) and (tx0 + 16,
+//    tx0 + 17) as 4-byte copies (16-17, 18-19). Where w % 8 or the source's
+//    alignment rule the copies out, the same elements are loaded one by one.
+//    The caller commits the cp.async group and waits for it.
+// 2. halo_from_raw writes the halo channels fastest (u[(yy * 18 + xx) *
+//    us + c] for c < Cp) through a per-channel transform xf(c, v) of each
+//    input value inside the image and channel count (the forward
+//    normalizes there; the data gradients copy), zero elsewhere: a thread
+//    takes a halo pixel and eight channels at a time and stores them as 16
+//    bytes.
+constexpr int kRawW = 24;
+
+template <int ROWS>
+__device__ inline void stage_halo_raw(bf16* __restrict__ raw, int C, int h,
+                                      int w, size_t cs, int ty0, int tx0,
+                                      const bf16* __restrict__ src,
+                                      bool fast) {
+  const int njobs = C * ROWS * 4;
+  for (int j = threadIdx.x; j < njobs; j += blockDim.x) {
+    const int part = j & 3, cy = j >> 2;
+    const int c = cy / ROWS, yy = cy - c * ROWS;
+    const int py = ty0 + yy - 1;
+    const bool row_in = py >= 0 && py < h;
+    const bf16* row = src + (row_in ? c * cs + (size_t)py * w : 0);
+    bf16* dst = raw + cy * kRawW;
+    if (fast) {
+      if (part < 2) {
+        const int px0 = tx0 + 8 * part;
+        const bool ok = row_in && px0 < w;
+        cp_async16(dst + 8 * part, ok ? row + px0 : src, ok);
+      } else if (part == 2) {
+        const bool ok = row_in && tx0 > 0;
+        cp_async4(dst + 16, ok ? row + tx0 - 2 : src, ok);
+      } else {
+        const bool ok = row_in && tx0 + 16 < w;
+        cp_async4(dst + 18, ok ? row + tx0 + 16 : src, ok);
+      }
+      continue;
+    }
+    const bf16 zero = __float2bfloat16(0.0f);
+    if (part < 2) {
+      const int px0 = tx0 + 8 * part;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        dst[8 * part + i] = row_in && px0 + i < w ? row[px0 + i] : zero;
+    } else if (part == 2) {
+      dst[16] = zero;
+      dst[17] = row_in && tx0 > 0 ? row[tx0 - 1] : zero;
+    } else {
+      dst[18] = row_in && tx0 + 16 < w ? row[tx0 + 16] : zero;
+      dst[19] = zero;
+    }
+  }
+}
+
+template <int ROWS, class Xf>
+__device__ inline void halo_from_raw(bf16* __restrict__ u, int us, int Cp,
+                                     int C, const bf16* __restrict__ raw,
+                                     int h, int w, int ty0, int tx0, Xf xf) {
+  const unsigned short* rb = reinterpret_cast<const unsigned short*>(raw);
+  for (int hp = threadIdx.x; hp < ROWS * 18; hp += blockDim.x) {
+    const int yy = hp / 18, xx = hp - yy * 18;
+    const int py = ty0 + yy - 1, px = tx0 + xx - 1;
+    const bool in = py >= 0 && py < h && px >= 0 && px < w;
+    const unsigned short* r =
+        rb + yy * kRawW + (xx == 0 ? 17 : xx == 17 ? 18 : xx - 1);
+    for (int c0 = 0; c0 < Cp; c0 += 8) {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + i;
+        v[i] = in && c < C
+                   ? xf(c, __uint_as_float((unsigned)r[c * ROWS * kRawW]
+                                           << 16))
+                   : 0.0f;
+      }
+      *reinterpret_cast<uint4*>(u + hp * us + c0) =
+          make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                     pack2(v[4], v[5]), pack2(v[6], v[7]));
+    }
+  }
+}
+
+// the raw buffer's elements for C channels of a ROWS-row halo
+template <int ROWS>
+__host__ __device__ constexpr int halo_raw_elems(int C) {
+  return C * ROWS * kRawW;
 }
 
 // ge = bf16(gy + s0 + 2 y s1), (s0, s1) = gstats[f], over [rows, F, HW]:

@@ -25,15 +25,17 @@
 // normalized operand and feeding the tensor cores from shared memory.
 //
 // What the design does about it: the implicit GEMM of csrc/convcomb.cu
-// without its depth ring. A block keeps the whole [F, 9C] weight matrix in
-// shared memory (loaded once) and walks image tiles in a grid-stride loop;
-// for each tile it normalizes the 10x18-pixel halo into shared memory,
-// channels fastest, and each warp computes every output channel of 32
-// pixels with mma.sync m16n8k16, ldmatrix reading the B fragments straight
-// from the shifted halo pixels. The BN sums stay in registers across the
+// without its depth ring, on wgmma (wgmma.cuh). A block keeps the whole
+// weight matrix B [9 Cp, Fp] in shared memory (built once from W's own
+// [F, C, 3, 3] layout) and walks 8x16-pixel image tiles in a grid-stride
+// loop; the raw input of the tile two steps ahead arrives by cp.async
+// while the current one computes, and is normalized once into the
+// 10x18-pixel halo, channels fastest (conv_bwd.cuh, halo_from_raw). The
+// warpgroup's products take M = 64 pixels (two slabs a tile), N = Fp, K =
+// 9 Cp, A loaded from the shifted halo by ldmatrix. y leaves through
+// shared memory as 16-byte runs; the BN sums stay in registers across the
 // block's tiles and go to a partials buffer that a second kernel reduces
-// in a fixed order (deterministic stats). C and F up to 80 (five 16-row
-// tiles): the weights take at most 116 KB, two blocks per SM at C = F = 64.
+// in a fixed order (deterministic stats). C and F up to 80.
 //
 // Backward (convbn2d_bwd), with ge = bf16(gy + s0 + 2 y s1) folding the
 // statistics' cotangent (s0, s1) into gy, written once by a fold pass
@@ -62,19 +64,18 @@
 #include "wgmma.cuh"
 
 using de::bf16;
-using de::ldmatrix_x4;
-using de::mma_16816;
 using de::stats_reduce_kernel;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kFwdThreads = 256;           // the forward: two warpgroups
 constexpr int kTH = 8, kTW = 16;           // output tile: 8 rows x 16 cols
 constexpr int kHaloW = kTW + 2;
 constexpr int kHalo = (kTH + 2) * kHaloW;  // 180 halo pixels
-constexpr int kNT = 4;                     // n8 pixel tiles per warp
-constexpr int kMaxMT = 5;                  // m16 row tiles: C, F <= 80
+constexpr int kMaxMT = 5;                  // 16-channel groups: C, F <= 80
+constexpr int kSYS = kTH * kTW + 8;        // y tile row stride: +16 B
 
 using de::act_bwd;
 using de::act_fwd;
@@ -82,196 +83,229 @@ using de::affine;
 using de::kActLeaky;
 using de::kActNone;
 
-// The forward layer. x [N, C, HW] with the layer's (a, b) and act, wk
-// [MT*16, 9*Cp] (index s*Cp + c, s = kh*3 + kw); y [N, F, HW],
+// The forward layer. ``NG`` = Cp / 16, the 16-channel groups of K per
+// shift; ``NC`` = Fp, the wgmma N (both constants, so that every register
+// operand of the products is known to the compiler). x [N, C, HW] with the
+// layer's (a, b) and act, wt [F, C, 3, 3] (the module's weight, read once
+// per block into B[s*Cp + c][f], K-major in shared memory); y [N, F, HW],
 // ``partials`` [F, gridDim.x, 2] = per-block (sum y, sum y^2).
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-convbn2d_kernel(const bf16* __restrict__ in, const float* __restrict__ ka,
-                const float* __restrict__ kb, const bf16* __restrict__ wk,
-                bf16* __restrict__ out, float* __restrict__ partials, int K,
-                int Kp, int M, int h, int w, int act, int tiles_x, int units) {
-  constexpr int Mp = MT * 16;
+//
+// A block (two warpgroups, one 4-row M slab of the tile each) walks
+// 8x16-pixel tiles in a grid-stride loop.
+// The raw x rows of the tile two steps ahead are copied (cp.async) into
+// one of two raw buffers while the current tile computes; the current
+// tile's are normalized (halo_from_raw, u = bf16(act(x a + b))) into the
+// channels-fastest 10x18-pixel halo; per 3x3 shift s each warp loads the
+// A fragments of its tile row (warp w: row w) from the halo, alternating
+// two register sets, and its warpgroup issues the products. The
+// epilogue rounds y to bf16 and writes it through shared memory (the
+// halo's space, [Fp, 128 + 8]) as 16-byte runs of one channel row; the
+// thread that stores a run adds it to its channel's sums, which stay in
+// registers across the block's tiles: job j = 16 f + 2 * tile row + half,
+// so a thread's channels are the same in every tile, and channel f's 16
+// jobs are 16 neighbouring lanes, added in a fixed order at the end.
+template <int NG, int NC>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+convbn2d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+                const float* __restrict__ ka, const float* __restrict__ kb,
+                bf16* __restrict__ y, float* __restrict__ partials, int C,
+                int F, int h, int w, int act, int tiles_x, int units) {
+  constexpr int Cp = NG * 16, K = 9 * Cp, us = Cp + 8;
+  constexpr int kRows = kTH + 2;
+  constexpr int kRaw = de::halo_raw_elems<kRows>(Cp);
+  constexpr int kUY = kHalo * us > NC * kSYS ? kHalo * us : NC * kSYS;
+  constexpr int kSlots = 16 * NC / kFwdThreads;
   const int HW = h * w;
   const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ws = 9 * Kp + 8, us = Kp + 8;  // row strides: +16 B, no conflicts
 
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);                 // [Mp, ws]
-  bf16* sU = sW + Mp * ws;                                   // [kHalo, us]
-  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);   // [warp, Mp, 2]
+  bf16* sB = reinterpret_cast<bf16*>(smem);          // [K, NC], K-major
+  bf16* sU = sB + K * NC;                             // [kHalo, us] or
+  bf16* sY = sU;                                      // [NC, kSYS]
+  bf16* sRaw = sU + kUY;                              // [2][kRaw]
+  float* sAB = reinterpret_cast<float*>(sRaw + 2 * kRaw);   // a, b [2][Cp]
 
-  const int k8 = 9 * Kp / 8;
-  for (int i = threadIdx.x; i < Mp * k8; i += kThreads) {
-    const int r = i / k8, c8 = i - r * k8;
-    *reinterpret_cast<uint4*>(sW + r * ws + c8 * 8) =
-        *reinterpret_cast<const uint4*>(wk + (size_t)r * 9 * Kp + c8 * 8);
-  }
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < kHalo * us; i += kThreads) sU[i] = zero;
+  const bool fast = w % 8 == 0 && de::aligned16(x);
+  const bool fast_y = w % 8 == 0 && de::aligned16(y);
+  // unit u's raw copies into buffer ``buf``, one cp.async group (committed
+  // even when empty, so that the group count is the unit count)
+  auto stage = [&](int unit, int buf) {
+    if (unit < units) {
+      const int n = unit / tiles, tile = unit - n * tiles;
+      de::stage_halo_raw<kRows>(sRaw + buf * kRaw, C, h, w, HW,
+                                (tile / tiles_x) * kTH,
+                                (tile % tiles_x) * kTW,
+                                x + (size_t)n * C * HW, fast);
+    }
+    de::cp_async_commit();
+  };
+  stage(blockIdx.x, 0);
+  stage(blockIdx.x + gridDim.x, 1);
 
-  // warp w owns tile rows 2w, 2w+1: n8 tiles t = 4w + j (row t/2, columns
-  // (t%2)*8 .. +7). ldmatrix B (x4 = two n8 tiles x two 8-channel halves):
-  // lane -> matrix lane/8 -> tile 4w + 2p + (lane/8)/2, half (lane/8)%2
-  int hb[kNT / 2];
-#pragma unroll
-  for (int p = 0; p < kNT / 2; ++p) {
-    const int t = 4 * warp + 2 * p + ((lane >> 3) >> 1);
-    hb[p] = ((t >> 1) + 1) * kHaloW + (t & 1) * 8 + (lane & 7) + 1;
+  const uint4 z4 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < K * NC / 8; i += kFwdThreads)
+    reinterpret_cast<uint4*>(sB)[i] = z4;
+  for (int i = threadIdx.x; i < 2 * Cp; i += kFwdThreads) {
+    const int c = i < Cp ? i : i - Cp;
+    sAB[i] = c < C ? (i < Cp ? ka[c] : kb[c]) : 0.0f;
   }
-  const int chalf = ((lane >> 3) & 1) * 8;
-  // A (x4 = rows 0-7 / 8-15 x k 0-7 / 8-15 of a 16x16 tile)
-  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int acol = (lane >> 4) * 8;
-  // this lane's accumulator elements: rows g and g+8, pixels q2, q2+1
+  __syncthreads();
+  // W [F, C, 3, 3] -> B[s*Cp + c][f]
+  const float inv_c9 = 1.0f / (C * 9);
+  de::for_each_bf16(wt, F * C * 9, [&](int i, unsigned short v) {
+    const int f = de::div_small(i, C * 9, inv_c9), rem = i - f * C * 9;
+    const int c = rem / 9, s = rem - c * 9;
+    sB[de::kmajor_off(s * Cp + c, f, NC)] = __ushort_as_bfloat16(v);
+  });
+  de::fence_proxy_async();
+  auto norm = [&](int c, float v) {
+    return act_fwd(affine(v, sAB[c], sAB[Cp + c]), act);
+  };
+
+  // ldmatrix rows: pixel p of the warp's tile row, channel half ch
+  const int p = (lane & 7) + ((lane >> 3) & 1) * 8, ch = (lane >> 4) * 8;
+  const unsigned ab = de::smem_addr(sU + (warp * kHaloW + p) * us + ch);
+  // accumulator element e of n8 group j: pixel g (+8 for e >= 2) of the
+  // warp's tile row, channel 8j + q2 (+1 for odd e)
   const int g = lane >> 2, q2 = (lane & 3) * 2;
 
-  float st[MT][2][2];
+  float st[kSlots][2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) st[mt][hh][0] = st[mt][hh][1] = 0.0f;
+  for (int k = 0; k < kSlots; ++k) st[k][0] = st[k][1] = 0.0f;
 
+  int buf = 0;
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
     const int n = unit / tiles, tile = unit - n * tiles;
     const int ty0 = (tile / tiles_x) * kTH, tx0 = (tile % tiles_x) * kTW;
-    const size_t in0 = (size_t)n * K * HW;
-    __syncthreads();                 // the last tile's products are done
-    for (int i = threadIdx.x; i < K * kHalo; i += kThreads) {
-      const int c = i / kHalo, hp = i - c * kHalo;
-      const int yy = hp / kHaloW, xx = hp - yy * kHaloW;
-      const int gy = ty0 + yy - 1, gx = tx0 + xx - 1;
-      float v = 0.0f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        const size_t at = in0 + (size_t)c * HW + gy * w + gx;
-        v = act_fwd(affine(__bfloat162float(in[at]), ka[c], kb[c]), act);
-      }
-      sU[hp * us + c] = __float2bfloat16(v);
-    }
-    __syncthreads();
+    de::cp_async_wait<1>();          // this thread's copies of the unit
+    __syncthreads();                 // everyone's; the last unit is done
+                                     // with sU / sY
+    de::halo_from_raw<kRows>(sU, us, Cp, C, sRaw + buf * kRaw, h, w, ty0,
+                             tx0, norm);
+    __syncthreads();                 // the halo is ready; the raw buffer
+                                     // is free
+    stage(unit + 2 * gridDim.x, buf);
+    buf ^= 1;
 
-    float acc[MT][kNT][4];
+    float acc[NC / 2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int e = 0; e < NC / 2; ++e) acc[e] = 0.0f;
+    unsigned af[2][NG][4];           // [register set][group]
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
     for (int s = 0; s < 9; ++s) {
-      const int off = (s / 3 - 1) * kHaloW + (s % 3 - 1);
-      for (int cg = 0; cg < Kp; cg += 16) {
-        unsigned bfr[kNT / 2][4];
+      const int set = s & 1;
+      const unsigned off =
+          ab + (unsigned)(((s / 3) * kHaloW + s % 3) * us * sizeof(bf16));
 #pragma unroll
-        for (int p = 0; p < kNT / 2; ++p)
-          ldmatrix_x4(bfr[p], sU + (hb[p] + off) * us + cg + chalf);
+      for (int cg = 0; cg < NG; ++cg)
+        de::ldmatrix_x4_addr(af[set][cg], off + cg * 32);
+      de::wg_fence();
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          unsigned afr[4];
-          ldmatrix_x4(afr, sW + (mt * 16 + arow) * ws + s * Kp + cg + acol);
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-            mma_16816(acc[mt][j], afr, bfr[j / 2][(j & 1) * 2],
-                      bfr[j / 2][(j & 1) * 2 + 1]);
-        }
-      }
+      for (int cg = 0; cg < NG; ++cg)
+        de::Wgmma<NC>::mma(acc, af[set][cg],
+                           de::kmajor_desc(sB, s * NG + cg, NC));
+      de::wg_commit();
+      de::wg_wait<1>();              // the other register set is free
     }
+    de::wg_wait<0>();
+    __syncthreads();                 // every warp is done with the halo
 
-    // y to global bf16, and the channel sums
-    const size_t out0 = (size_t)n * M * HW;
+    // y = bf16(acc) -> sY -> global, 16-byte runs of one channel row
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int t = 4 * warp + j;
-      const int gy = ty0 + (t >> 1);
-      const int gx = tx0 + (t & 1) * 8 + q2;
-      if (gy >= h) continue;
-      const bool ok0 = gx < w, ok1 = gx + 1 < w;
+    for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int e = 0; e < 4; ++e) {
+        const int f = 8 * j + q2 + (e & 1);
+        if (f < F)
+          sY[f * kSYS + warp * 16 + g + 8 * (e >> 1)] =
+              __float2bfloat16(acc[4 * j + e]);
+      }
+    __syncthreads();
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int m = mt * 16 + g + 8 * hh;
-          if (m >= M) continue;
-          const size_t at = out0 + (size_t)m * HW + gy * w + gx;
-          // stats of the bf16 y
-          const float v0 = de::round_bf16(acc[mt][j][2 * hh]);
-          const float v1 = de::round_bf16(acc[mt][j][2 * hh + 1]);
-          const float s0 = v0, s1 = v1, q0 = v0 * v0, q1 = v1 * v1;
-          bf16* dst = out + at;
-          if (ok1 && !(w & 1)) {    // even w: the pair is 4-byte aligned
-            *reinterpret_cast<__nv_bfloat162*>(dst) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            if (ok0) dst[0] = __float2bfloat16(v0);
-            if (ok1) dst[1] = __float2bfloat16(v1);
-          }
-          if (ok0) {
-            st[mt][hh][0] += s0;
-            st[mt][hh][1] += q0;
-          }
-          if (ok1) {
-            st[mt][hh][0] += s1;
-            st[mt][hh][1] += q1;
-          }
+    for (int k = 0; k < kSlots; ++k) {
+      const int j = threadIdx.x + k * kFwdThreads;
+      const int f = j >> 4, rr = (j >> 1) & 7, half = j & 1;
+      const int py = ty0 + rr, px0 = tx0 + 8 * half;
+      if (f >= F || py >= h || px0 >= w) continue;
+      const uint4 val =
+          *reinterpret_cast<const uint4*>(sY + f * kSYS + rr * 16 + half * 8);
+      bf16* dst = y + ((size_t)n * F + f) * HW + (size_t)py * w + px0;
+      if (fast_y) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (px0 + i < w)
+            dst[i] = __ushort_as_bfloat16(de::bf_bits(val, i));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (px0 + i < w) {
+          const float q = de::bf_at(val, i);
+          st[k][0] += q;
+          st[k][1] += q * q;
         }
     }
   }
 
-  // channel sums: the 4 lanes of a row, then the warps
+  // channel f's 16 jobs: 16 neighbouring lanes, added in a fixed order
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int k = 0; k < kSlots; ++k) {
+    float s0 = st[k][0], s1 = st[k][1];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        float v = st[mt][hh][k];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        st[mt][hh][k] = v;
-      }
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = mt * 16 + g + 8 * hh;
-        sRed[(warp * Mp + m) * 2] = st[mt][hh][0];
-        sRed[(warp * Mp + m) * 2 + 1] = st[mt][hh][1];
-      }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * M; i += kThreads) {
-    const int m = i / 2, k = i % 2;
-    float v = 0.0f;
-    for (int wi = 0; wi < kWarps; ++wi) v += sRed[(wi * Mp + m) * 2 + k];
-    partials[((size_t)m * gridDim.x + blockIdx.x) * 2 + k] = v;
+    for (int o = 1; o < 16; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    const int j = threadIdx.x + k * kFwdThreads, f = j >> 4;
+    if ((j & 15) == 0 && f < F) {
+      partials[((size_t)f * gridDim.x + blockIdx.x) * 2] = s0;
+      partials[((size_t)f * gridDim.x + blockIdx.x) * 2 + 1] = s1;
+    }
   }
 }
 
-template <int MT>
-cudaError_t launch_fwd(const bf16* x, const float* a, const float* b,
-                       const bf16* wk, bf16* y, float* partials, float* sums,
-                       int N, int C, int Cp, int F, int h, int w, int act,
+template <int NG, int NC>
+cudaError_t launch_fwd(const bf16* x, const bf16* wt, const float* a,
+                       const float* b, bf16* y, float* partials, float* sums,
+                       int cap, int N, int C, int F, int h, int w, int act,
                        cudaStream_t s) {
-  const size_t smem = sizeof(bf16) * ((size_t)MT * 16 * (9 * Cp + 8) +
-                                      (size_t)kHalo * (Cp + 8)) +
-                      sizeof(float) * kWarps * MT * 16 * 2;
-  auto kernel = convbn2d_kernel<MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  constexpr int Cp = NG * 16;
+  constexpr int kUY =
+      kHalo * (Cp + 8) > NC * kSYS ? kHalo * (Cp + 8) : NC * kSYS;
+  const size_t smem =
+      sizeof(bf16) * ((size_t)9 * Cp * NC + kUY +
+                      2 * (size_t)de::halo_raw_elems<kTH + 2>(Cp)) +
+      sizeof(float) * 2 * Cp;
+  auto kernel = convbn2d_kernel<NG, NC>;
+  static int slots[16][2];
   int per_sm = 0, n_sm = 0;
-  err = de::blocks_per_sm(kernel, kThreads, smem, &per_sm, &n_sm);
+  cudaError_t err =
+      de::launch_shape(kernel, kFwdThreads, smem, slots, &per_sm, &n_sm);
   if (err != cudaSuccess) return err;
   const int tiles_x = (w + kTW - 1) / kTW;
   const int units = N * ((h + kTH - 1) / kTH) * tiles_x;
-  const int nblk = std::min(units, std::max(per_sm, 1) * n_sm);
-  kernel<<<nblk, kThreads, smem, s>>>(x, a, b, wk, y, partials, C, Cp, F, h,
-                                       w, act, tiles_x, units);
+  const int nblk = std::min({units, std::max(per_sm, 1) * n_sm, cap});
+  kernel<<<nblk, kFwdThreads, smem, s>>>(x, wt, a, b, y, partials, C, F, h,
+                                         w, act, tiles_x, units);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   stats_reduce_kernel<<<F, 256, 0, s>>>(partials, sums, nblk);
   return cudaGetLastError();
+}
+
+// the forward at Cp = 16 NG, Fp chosen at run time
+template <int NG>
+cudaError_t dispatch_fwd(int Fp, const bf16* x, const bf16* wt,
+                         const float* a, const float* b, bf16* y,
+                         float* partials, float* sums, int cap, int N, int C,
+                         int F, int h, int w, int act, cudaStream_t s) {
+#define DE_FWD(fp)                                                           \
+  launch_fwd<NG, fp>(x, wt, a, b, y, partials, sums, cap, N, C, F, h, w,     \
+                     act, s)
+  DE_SWITCH16(Fp, DE_FWD)
+#undef DE_FWD
 }
 
 bool bad_dims(int C, int Cp, int F, int Fp, int act) {
@@ -293,11 +327,20 @@ bool bad_dims(int C, int Cp, int F, int Fp, int act) {
 //       block;
 //   dW: conv_bwd.cuh's conv_dw_kernel with one tap (M = 9 Cp, N = Fp).
 
+// The channels of ge that one raw copy of the data gradient's halo holds:
+// all of them up to Fp = 48; 16 at a time above, so that the raw buffer
+// does not cost a block per SM (at C = F = 64: 110 KB, two blocks)
+__host__ __device__ constexpr int dx_chunk(int fp) {
+  return fp >= 64 ? 16 : fp;
+}
+
 // Data gradient. ``NC`` = Cp, the wgmma N; ``NG`` = Fp / 16, the 16-channel
 // groups of K per shift (both constants, so that every register operand
 // of the products is known to the compiler). A block (one warpgroup) walks
 // 8x16-pixel tiles in a grid-stride loop: it stages the tile's ge halo
-// (10x18 pixels, Fp channels fastest) in shared memory, then per 3x3
+// (10x18 pixels, Fp channels fastest) in shared memory (conv_bwd.cuh's
+// two steps, copy and transpose, dx_chunk channels at a time), then per
+// 3x3
 // shift s loads the A fragments of both 4-row halves (warp w: tile rows w
 // and w + 4) and issues their products; the shifts alternate two register
 // sets, so the loads of shift s + 1 overlap the products of shift s. The
@@ -321,7 +364,10 @@ convbn2d_dx_kernel(const bf16* __restrict__ ge,
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sB = reinterpret_cast<bf16*>(smem);                  // [K, NC]
   bf16* sU = sB + K * NC;                                     // [kHalo, us]
-  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);    // [4][NC][2]
+  constexpr int kChunk = dx_chunk(Fp);
+  bf16* sRaw = sU + kHalo * us;            // [kChunk, kTH + 2, kRawW]
+  float* sRed = reinterpret_cast<float*>(
+      sRaw + de::halo_raw_elems<kTH + 2>(kChunk));            // [4][NC][2]
 
   const uint4 z4 = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < (K * NC + kHalo * us) / 8; i += kThreads)
@@ -345,13 +391,24 @@ convbn2d_dx_kernel(const bf16* __restrict__ ge,
     ab[t] = de::smem_addr(sU + ((warp + 4 * t) * kHaloW + p) * us + ch);
   const int g = lane >> 2, q2 = (lane & 3) * 2;
 
+  const bool fast = w % 8 == 0 && de::aligned16(ge);
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
     const int n = unit / tiles, tile = unit - n * tiles;
     const int ty0 = (tile / tiles_x) * kTH, tx0 = (tile % tiles_x) * kTW;
     const size_t g0 = (size_t)n * F * HW;
-    __syncthreads();                 // the last tile's loads are done
-    de::stage_halo<kTH>(sU, us, F, h, w, HW, ty0, tx0, ge + g0);
-    __syncthreads();
+    for (int c0 = 0; c0 < Fp; c0 += kChunk) {
+      const int nc = min(kChunk, F - c0);
+      if (nc > 0)
+        de::stage_halo_raw<kTH + 2>(sRaw, nc, h, w, HW, ty0, tx0,
+                                    ge + g0 + (size_t)c0 * HW, fast);
+      de::cp_async_commit();
+      de::cp_async_wait<0>();
+      __syncthreads();               // the copies landed; the last tile's
+                                     // products are done with sU
+      de::halo_from_raw<kTH + 2>(sU + c0, us, kChunk, nc, sRaw, h, w, ty0,
+                                 tx0, [](int, float v) { return v; });
+      __syncthreads();
+    }
 
     float acc[2][NC / 2];
 #pragma unroll
@@ -431,15 +488,16 @@ cudaError_t launch_dx(const bf16* ge, const bf16* wt, const bf16* x,
                       const float* a, const float* b, bf16* dx,
                       float* partials, float* dab, int cap, int N, int C,
                       int F, int h, int w, int act, cudaStream_t s) {
-  const size_t smem = sizeof(bf16) * ((size_t)9 * NG * 16 * NC +
-                                      (size_t)kHalo * (NG * 16 + 8)) +
-                      sizeof(float) * kWarps * NC * 2;
+  const size_t smem =
+      sizeof(bf16) * ((size_t)9 * NG * 16 * NC +
+                      (size_t)kHalo * (NG * 16 + 8) +
+                      de::halo_raw_elems<kTH + 2>(dx_chunk(NG * 16))) +
+      sizeof(float) * kWarps * NC * 2;
   auto kernel = convbn2d_dx_kernel<NC, NG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static int slots[16][2];
   int per_sm = 0, n_sm = 0;
-  err = de::blocks_per_sm(kernel, kThreads, smem, &per_sm, &n_sm);
+  cudaError_t err =
+      de::launch_shape(kernel, kThreads, smem, slots, &per_sm, &n_sm);
   if (err != cudaSuccess) return err;
   const int tiles_x = (w + kTW - 1) / kTW;
   const int units = N * ((h + kTH - 1) / kTH) * tiles_x;
@@ -467,23 +525,25 @@ cudaError_t dispatch_dx(int Fp, const bf16* ge, const bf16* wt, const bf16* x,
 
 }  // namespace
 
-// The forward: x [N, C, h*w] bf16; wk [Fp, 9*Cp] bf16 packed weights (K
-// index s*Cp + c, s = kh*3 + kw, zero padded); a, b [C] f32; act 0 none,
-// 1 relu, 2 leaky; y [N, F, h*w] bf16; stats [F, 2] f32; partials [F, cap,
-// 2] f32 scratch with cap >= N * ceil(h/8) * ceil(w/16). All contiguous.
-// C, F <= 80.
-extern "C" int convbn2d_fwd(const void* x, const void* wk, const void* a,
+// The forward: x [N, C, h*w] bf16; w [F, C, 3, 3] bf16 (the module's
+// weight, read as it is); a, b [C] f32; act 0 none, 1 relu, 2 leaky; y [N,
+// F, h*w] bf16; stats [F, 2] f32; partials [F, cap, 2] f32 scratch with cap
+// >= 1 (the kernel takes at most cap blocks). All contiguous. C, F <= 80.
+// Two launches on ``stream``: the layer, and the fixed-order reduce of its
+// per-block sums into stats.
+extern "C" int convbn2d_fwd(const void* x, const void* w, const void* a,
                             const void* b, void* y, void* stats,
-                            void* partials, int N, int C, int Cp, int F,
-                            int Fp, int h, int w, int act, void* stream) {
-  if (bad_dims(C, Cp, F, Fp, act) || N < 1 || h < 1 || w < 1)
+                            void* partials, int N, int C, int F, int h,
+                            int wd, int act, int cap, void* stream) {
+  const int Cp = de::round16(C), Fp = de::round16(F);
+  if (bad_dims(C, Cp, F, Fp, act) || N < 1 || h < 1 || wd < 1 || cap < 1)
     return cudaErrorInvalidValue;
-#define DE_FWD(fp)                                                           \
-  launch_fwd<fp / 16>((const bf16*)x, (const float*)a, (const float*)b,      \
-                      (const bf16*)wk, (bf16*)y, (float*)partials,           \
-                      (float*)stats, N, C, Cp, F, h, w, act,                 \
-                      (cudaStream_t)stream)
-  DE_SWITCH16(Fp, DE_FWD)
+#define DE_FWD(cp)                                                           \
+  dispatch_fwd<cp / 16>(Fp, (const bf16*)x, (const bf16*)w, (const float*)a, \
+                        (const float*)b, (bf16*)y, (float*)partials,         \
+                        (float*)stats, cap, N, C, F, h, wd, act,             \
+                        (cudaStream_t)stream)
+  DE_SWITCH16(Cp, DE_FWD)
 #undef DE_FWD
 }
 

@@ -18,23 +18,25 @@
 // per row (the bf16 products), against the bytes of x and y: about 290
 // FLOP/byte at C = F = 32, near the card's bf16 balance point, so neither
 // HBM nor the tensor cores bound a simple kernel; its own instruction
-// overhead does: building the conv's input operand (gather, normalize,
-// round) and feeding the tensor cores.
+// overhead does: staging and normalizing the conv's input operand and
+// feeding the tensor cores.
 //
-// What the design does about it: a block owns a 4x16-pixel image tile of
-// one item's depth segment of up to ``seg`` output rows and streams the
-// input rows the segment needs (one halo row each side) in depth order,
-// the TPU kernel's ring on a short segment. Each input row is normalized
-// once into a 6x18-pixel halo tile in shared memory, channels fastest;
-// the conv is an implicit GEMM on it: for each 3x3 shift and 16-channel
-// group, ldmatrix reads the mma.sync m16n8k16 B fragments straight from
-// the shifted halo pixels, and the three taps' weights [3F, 9C] sit in
-// shared memory for the whole block. The depth combine runs on the f32
-// accumulator fragments in registers (the running part(m) and the
-// previous row's t0), so the [N, 3F, H*W] tap tensor never exists and
-// each (tap, row) product is computed once. Per-block channel sums go to
-// a partials buffer that a second small kernel reduces, so the stats are
-// deterministic. TMA and wgmma are later work.
+// What the design does about it (convcomb_kernel): a block owns a
+// 4x16-pixel image tile of one item's depth segment of up to ``seg``
+// output rows and streams the input rows the segment needs (one halo row
+// each side) in depth order, the TPU kernel's ring on a short segment. The
+// raw x rows arrive by cp.async two rows ahead of the one that computes;
+// each is normalized once into a 6x18-pixel halo tile in shared memory,
+// channels fastest (conv_bwd.cuh, halo_from_raw). The conv is an implicit
+// GEMM on wgmma (wgmma.cuh): M = the tile's 64 pixels, A = the shifted
+// window loaded from the halo by ldmatrix into registers, B = the three
+// taps' weights stacked on N ([9 Cp, 3 S] in shared memory, built from
+// wm's own layout once per block), K = 9 Cp. The depth combine runs on
+// the f32 accumulators in registers (the running part(m) and the previous
+// row's t0), so the [N, 3F, H*W] tap tensor never exists and each (tap,
+// row) product is computed once; y leaves through shared memory as 16-byte
+// runs. Per-block channel sums go to a partials buffer that a second small
+// kernel reduces, so the stats are deterministic.
 //
 // Backward (convcomb_bwd). With ge = bf16(gy + s0 + 2 y s1) folding the
 // statistics' cotangent (s0, s1) into the output cotangent gy, the taps'
@@ -67,6 +69,7 @@
 // gradients repeat bit for bit.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "conv_bwd.cuh"
@@ -74,8 +77,6 @@
 #include "wgmma.cuh"
 
 using de::bf16;
-using de::ldmatrix_x4;
-using de::mma_16816;
 using de::stats_reduce_kernel;
 
 namespace {
@@ -85,18 +86,43 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTH = 4, kTW = 16;           // output tile: 4 rows x 16 cols
 constexpr int kHaloW = kTW + 2;
 constexpr int kHalo = (kTH + 2) * kHaloW;  // 108 halo pixels
-constexpr int kNT = 4;                     // n8 pixel tiles per warp (max)
-constexpr int kMaxF = 32;                  // two 16-channel row tiles
+constexpr int kMaxF = 32;                  // tap stride at most 32
+constexpr int kSYS = kTH * kTW + 8;        // y tile row stride: +16 B
 
-// The forward layer (x -> y, stats): the ring over the segment's input
-// rows, each normalized once into the halo tile.
+// The forward layer (x -> y, stats). ``NG`` = Cp / 16, the 16-channel
+// groups of K per shift; ``S`` = the tap stride (8, 16 or 32 >= F): the
+// three taps' products are one wgmma with N = 3 S, column t*S + f, so that
+// every thread holds all three taps of its channels (the ring needs no
+// shuffle) and F = 1 takes N = 24.
+//
+// A block (one warpgroup) owns the 4x16 tile at blockIdx.x of one item's
+// depth segment and walks its input rows m = d0 - 1 .. d1 in order. Per
+// row: the raw x rows of m + 2 are copied (cp.async) into one of two raw
+// buffers while row m computes; the raw rows of m are normalized
+// (halo_from_raw, u = bf16(act(x a + b))) into the channels-fastest halo;
+// per 3x3 shift s the warps load their A fragments (warp w: tile row w, 16
+// pixels) from the halo, alternating two register sets, and issue the
+// product against B = [9 Cp, 3 S] (B[s*Cp + c][t*S + f] = wm[t*F + f, c,
+// s], built from wm's own [3F, C, 3, 3] once per block); then the ring on
+// the f32 accumulators in registers, in the TPU kernel's rounding order:
+//   y(m-1)  = bf16(part(m-1) + bf16(t2(m)))
+//   part(m) = bf16(bf16(t1(m)) + bf16(t0(m-1)))   [t0 term iff m > 0]
+// The epilogue writes y(m-1) through shared memory ([F, 64 + 8] bf16) and
+// stores it as 16-byte runs of one channel row; the thread that stores a
+// run adds its values to its channel's (sum y, sum y^2), and the eight
+// threads of a channel add theirs in a fixed order into ``partials`` [F,
+// nblk, 2].
+template <int NG, int S>
 __global__ void __launch_bounds__(kThreads)
-convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
+convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wm,
                 const float* __restrict__ a, const float* __restrict__ b,
-                bf16* __restrict__ y,
-                float* __restrict__ partials, int C, int Cp, int F, int Fp,
-                int depth, int h, int w, int relu, int seg, int nseg,
+                bf16* __restrict__ y, float* __restrict__ partials, int C,
+                int F, int depth, int h, int w, int relu, int seg, int nseg,
                 int tiles_x) {
+  constexpr int Cp = NG * 16, NP = 3 * S, K = 9 * Cp, us = Cp + 8;
+  constexpr int kRows = kTH + 2;
+  constexpr int kRaw = de::halo_raw_elems<kRows>(Cp);
+  constexpr int kSlots = (8 * S + kThreads - 1) / kThreads;
   const int HW = h * w;
   const int ty0 = (blockIdx.x / tiles_x) * kTH;
   const int tx0 = (blockIdx.x % tiles_x) * kTW;
@@ -106,193 +132,238 @@ convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   const int nblk = gridDim.x * gridDim.y;
   const int bid = blockIdx.y * gridDim.x + blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int Kp = 9 * Cp;
-  const int ws = Kp + 8, us = Cp + 8;      // row strides: +16 B, no conflicts
 
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);                  // [3 * Fp, ws]
-  bf16* sU = sW + 3 * Fp * ws;                                // [kHalo, us]
-  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);    // [warp,16,2]
-
-  // the three taps' weights, K index s*Cp + c (s = kh*3 + kw), once
-  const int k8 = Kp / 8;
-  for (int i = threadIdx.x; i < 3 * Fp * k8; i += kThreads) {
-    const int r = i / k8, c8 = i - r * k8;
-    *reinterpret_cast<uint4*>(sW + r * ws + c8 * 8) =
-        *reinterpret_cast<const uint4*>(wk + (size_t)r * Kp + c8 * 8);
-  }
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < kHalo * us; i += kThreads) sU[i] = zero;
-
-  // warp tiling: all three taps of one 16-channel row tile ft and nt n8
-  // pixel tiles (n8 tile t = image row t/2 of the tile, columns
-  // (t%2)*8 .. +7)
-  const bool two_ft = Fp == 32;
-  const int ft = two_ft ? warp >> 1 : 0;
-  const int nt = two_ft ? 4 : 2;
-  const int n0 = two_ft ? (warp & 1) * 4 : warp * 2;
-  // ldmatrix row addresses. B (x4 = two n8 tiles x two 8-channel halves):
-  // lane -> matrix lane/8 -> tile n0 + 2p + (lane/8)/2, half (lane/8)%2
-  int hb[kNT / 2];
-#pragma unroll
-  for (int p = 0; p < kNT / 2; ++p) {
-    const int t = n0 + 2 * p + ((lane >> 3) >> 1);
-    hb[p] = ((t >> 1) + 1) * kHaloW + (t & 1) * 8 + (lane & 7) + 1;
-  }
-  const int chalf = ((lane >> 3) & 1) * 8;
-  // A (x4 = rows 0-7 / 8-15 x k 0-7 / 8-15 of a 16x16 tile)
-  const int arow = ft * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int acol = (lane >> 4) * 8;
-  // this lane's accumulator elements: rows g and g+8, pixels q2, q2+1
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-
-  float part[kNT][4], t0p[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) part[j][e] = t0p[j][e] = 0.0f;
-  float st[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // [row half][sum, sumsq]
-
-  // row r's y from this lane's fragments -> global bf16, and the channel
-  // sums
-  auto emit = [&](int r, const float (&v)[kNT][4]) {
-    const size_t row = (size_t)item * depth + r;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      if (j >= nt) continue;
-      const int t = n0 + j;
-      const int gy = ty0 + (t >> 1);
-      const int gx = tx0 + (t & 1) * 8 + q2;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int f = ft * 16 + g + 8 * hh;
-        if (f >= F || gy >= h) continue;
-        const size_t at = (row * F + f) * HW + (size_t)gy * w + gx;
-        const bool ok0 = gx < w, ok1 = gx + 1 < w;
-        const float v0 = v[j][2 * hh], v1 = v[j][2 * hh + 1];
-        const float s0 = v0, s1 = v1, q0 = v0 * v0, q1 = v1 * v1;
-        bf16* dst = y + at;
-        if (ok1 && !(w & 1)) {      // even w: the pair is 4-byte aligned
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (ok0) dst[0] = __float2bfloat16(v0);
-          if (ok1) dst[1] = __float2bfloat16(v1);
-        }
-        if (ok0) {
-          st[hh][0] += s0;
-          st[hh][1] += q0;
-        }
-        if (ok1) {
-          st[hh][0] += s1;
-          st[hh][1] += q1;
-        }
-      }
-    }
-  };
+  bf16* sB = reinterpret_cast<bf16*>(smem);          // [K, NP], K-major
+  bf16* sU = sB + K * NP;                             // [kHalo, us]
+  bf16* sY = sU + kHalo * us;                         // [S, kSYS]
+  bf16* sRaw = sY + S * kSYS;                         // [2][kRaw]
+  float* sAB = reinterpret_cast<float*>(sRaw + 2 * kRaw);   // a, b [2][Cp]
 
   const int m_begin = d0 > 0 ? d0 - 1 : 0;
   const int m_end = d1 < depth ? d1 : depth - 1;
-  for (int m = m_begin; m <= m_end; ++m) {
-    const bf16* xm = x + ((size_t)item * depth + m) * C * HW;
-    __syncthreads();                 // the last products are done with sU
-    for (int i = threadIdx.x; i < C * kHalo; i += kThreads) {
-      const int c = i / kHalo, hp = i - c * kHalo;
-      const int yy = hp / kHaloW, xx = hp - yy * kHaloW;
-      const int gy = ty0 + yy - 1, gx = tx0 + xx - 1;
-      float v = 0.0f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        v = __bfloat162float(xm[(size_t)c * HW + gy * w + gx]) * a[c] + b[c];
-        if (relu) v = fmaxf(v, 0.0f);
-      }
-      sU[hp * us + c] = __float2bfloat16(v);
-    }
-    __syncthreads();
+  const bf16* xi = x + (size_t)item * depth * C * HW;
+  const bool fast = w % 8 == 0 && de::aligned16(x);
+  const bool fast_y = w % 8 == 0 && de::aligned16(y);
+  // input row m's raw copies into buffer ``buf``, one cp.async group
+  // (committed even when empty, so that the group count is the row count)
+  auto stage = [&](int m, int buf) {
+    if (m <= m_end)
+      de::stage_halo_raw<kRows>(sRaw + buf * kRaw, C, h, w, HW, ty0, tx0,
+                                xi + (size_t)m * C * HW, fast);
+    de::cp_async_commit();
+  };
+  stage(m_begin, 0);
+  stage(m_begin + 1, 1);
 
-    float acc[3][kNT][4];
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.0f;
-    for (int s = 0; s < 9; ++s) {
-      const int off = (s / 3 - 1) * kHaloW + (s % 3 - 1);
-      for (int cg = 0; cg < Cp; cg += 16) {
-        unsigned bfr[kNT / 2][4];
-#pragma unroll
-        for (int p = 0; p < kNT / 2; ++p)
-          if (2 * p < nt)
-            ldmatrix_x4(bfr[p], sU + (hb[p] + off) * us + cg + chalf);
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          unsigned afr[4];
-          ldmatrix_x4(afr, sW + (t * Fp + arow) * ws + s * Cp + cg + acol);
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-            if (j < nt)
-              mma_16816(acc[t][j], afr, bfr[j / 2][(j & 1) * 2],
-                        bfr[j / 2][(j & 1) * 2 + 1]);
-        }
-      }
-    }
+  const uint4 z4 = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < K * NP / 8; i += kThreads)
+    reinterpret_cast<uint4*>(sB)[i] = z4;
+  for (int i = threadIdx.x; i < 2 * Cp; i += kThreads) {
+    const int c = i < Cp ? i : i - Cp;
+    sAB[i] = c < C ? (i < Cp ? a[c] : b[c]) : 0.0f;
+  }
+  __syncthreads();
+  // wm [3F, C, 3, 3]: row t*F + f, column c, shift s -> B[s*Cp + c][t*S + f]
+  const float inv_c9 = 1.0f / (C * 9), inv_f = 1.0f / F;
+  de::for_each_bf16(wm, 3 * F * C * 9, [&](int i, unsigned short v) {
+    const int tf = de::div_small(i, C * 9, inv_c9), rem = i - tf * C * 9;
+    const int c = rem / 9, s = rem - c * 9;
+    const int t = de::div_small(tf, F, inv_f), f = tf - t * F;
+    sB[de::kmajor_off(s * Cp + c, t * S + f, NP)] = __ushort_as_bfloat16(v);
+  });
+  de::fence_proxy_async();
+  const int act = relu ? de::kActRelu : de::kActNone;
+  auto norm = [&](int c, float v) {
+    return de::act_fwd(de::affine(v, sAB[c], sAB[Cp + c]), act);
+  };
 
-    // the TPU kernel's ring, in its rounding order (all three taps share
-    // the accumulator layout, so the combine is elementwise):
-    //   y(m-1)  = bf16(part(m-1) + bf16(t2(m)))
-    //   part(m) = bf16(bf16(t1(m)) + bf16(t0(m-1)))   [t0 term iff m > 0]
-    auto rnd = [](float v) { return de::round_bf16(v); };
-    const bool out = m - 1 >= d0 && m - 1 < d1;
-    const bool in = m >= d0 && m < d1;
-    float yv[kNT][4];
+  // ldmatrix rows: pixel p of the warp's tile row, channel half ch
+  const int p = (lane & 7) + ((lane >> 3) & 1) * 8, ch = (lane >> 4) * 8;
+  const unsigned ab = de::smem_addr(sU + (warp * kHaloW + p) * us + ch);
+  // accumulator element e of n8 group j: pixel g (+8 for e >= 2) of the
+  // warp's tile row, column 8j + q2 (+1 for odd e)
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+
+  float part[S / 2], t0p[S / 2], st[kSlots][2];
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+  for (int e = 0; e < S / 2; ++e) part[e] = t0p[e] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) st[k][0] = st[k][1] = 0.0f;
+
+  // row r's y (this thread's S/2 values) -> sY -> global as 16-byte runs:
+  // job j = 8f + 2 * tile row + half, eight pixels of channel f
+  auto emit = [&](int r, const float (&v)[S / 2]) {
+#pragma unroll
+    for (int jf = 0; jf < S / 8; ++jf)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        yv[j][e] = rnd(part[j][e] + rnd(acc[2][j][e]));
-        if (in) {
-          const float t1 = rnd(acc[1][j][e]);
-          part[j][e] = m > 0 ? rnd(t1 + t0p[j][e]) : t1;
+        const int f = 8 * jf + q2 + (e & 1);
+        if (f < F)
+          sY[f * kSYS + warp * 16 + g + 8 * (e >> 1)] =
+              __float2bfloat16(v[4 * jf + e]);
+      }
+    __syncthreads();
+    const size_t row = (size_t)item * depth + r;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      const int f = j >> 3, rr = (j >> 1) & 3, half = j & 1;
+      const int py = ty0 + rr, px0 = tx0 + 8 * half;
+      if (f >= F || py >= h || px0 >= w) continue;
+      const uint4 val =
+          *reinterpret_cast<const uint4*>(sY + f * kSYS + rr * 16 + half * 8);
+      bf16* dst = y + (row * F + f) * HW + (size_t)py * w + px0;
+      if (fast_y) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (px0 + i < w)
+            dst[i] = __ushort_as_bfloat16(de::bf_bits(val, i));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (px0 + i < w) {
+          const float q = de::bf_at(val, i);
+          st[k][0] += q;
+          st[k][1] += q * q;
         }
-        t0p[j][e] = rnd(acc[0][j][e]);
+    }
+  };
+
+  int buf = 0;
+  for (int m = m_begin; m <= m_end; ++m) {
+    de::cp_async_wait<1>();          // this thread's copies of row m landed
+    __syncthreads();                 // everyone's; the last row is done
+                                     // with sU and sY
+    de::halo_from_raw<kRows>(sU, us, Cp, C, sRaw + buf * kRaw, h, w, ty0,
+                             tx0, norm);
+    __syncthreads();                 // the halo is ready; the raw buffer
+                                     // is free
+    stage(m + 2, buf);
+    buf ^= 1;
+
+    float acc[NP / 2];
+#pragma unroll
+    for (int e = 0; e < NP / 2; ++e) acc[e] = 0.0f;
+    unsigned af[2][NG][4];           // [register set][group]
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      const int set = s & 1;
+      const unsigned off =
+          ab + (unsigned)(((s / 3) * kHaloW + s % 3) * us * sizeof(bf16));
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg)
+        de::ldmatrix_x4_addr(af[set][cg], off + cg * 32);
+      de::wg_fence();
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg)
+        de::Wgmma<NP>::mma(acc, af[set][cg],
+                           de::kmajor_desc(sB, s * NG + cg, NP));
+      de::wg_commit();
+      de::wg_wait<1>();              // the other register set is free
+    }
+    de::wg_wait<0>();
+
+    const bool out = m - 1 >= d0 && m - 1 < d1;
+    const bool in = m >= d0 && m < d1;
+    auto rnd = [](float v) { return de::round_bf16(v); };
+    float yv[S / 2];
+#pragma unroll
+    for (int jf = 0; jf < S / 8; ++jf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jf + e;
+        const float t0 = acc[4 * jf + e], t1 = acc[4 * (S / 8 + jf) + e];
+        const float t2 = acc[4 * (2 * (S / 8) + jf) + e];
+        yv[i] = rnd(part[i] + rnd(t2));
+        if (in) {
+          const float t1r = rnd(t1);
+          part[i] = m > 0 ? rnd(t1r + t0p[i]) : t1r;
+        }
+        t0p[i] = rnd(t0);
       }
     if (out) emit(m - 1, yv);
   }
-  if (d1 == depth) emit(depth - 1, part);   // the top row: no upper tap
+  if (d1 == depth) {                 // the top row: no upper tap
+    __syncthreads();                 // the last row's stores read sY
+    emit(depth - 1, part);
+  }
 
-  // channel sums: the 4 lanes of a row, then the warps of a row tile
+  // channel f's eight jobs are eight neighbouring lanes: add them in a
+  // fixed order, then the lane of job 8f writes the block's sums
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
+  for (int k = 0; k < kSlots; ++k) {
+    float s0 = st[k][0], s1 = st[k][1];
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      float v = st[hh][k];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      st[hh][k] = v;
+    for (int o = 1; o < 8; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
     }
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      sRed[(warp * 16 + g + 8 * hh) * 2] = st[hh][0];
-      sRed[(warp * 16 + g + 8 * hh) * 2 + 1] = st[hh][1];
+    const int j = threadIdx.x + k * kThreads, f = j >> 3;
+    if ((j & 7) == 0 && f < F) {
+      partials[((size_t)f * nblk + bid) * 2] = s0;
+      partials[((size_t)f * nblk + bid) * 2 + 1] = s1;
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * F; i += kThreads) {
-    const int f = i / 2, k = i % 2;
-    float v = 0.0f;
-    for (int wi = 0; wi < kWarps; ++wi)
-      if ((two_ft ? wi >> 1 : 0) == f / 16)
-        v += sRed[(wi * 16 + f % 16) * 2 + k];
-    partials[((size_t)f * nblk + bid) * 2 + k] = v;
-  }
+}
+
+// the forward's dynamic shared memory at (NG, S)
+template <int NG, int S>
+constexpr size_t fwd_smem() {
+  return sizeof(bf16) * ((size_t)9 * NG * 16 * 3 * S +
+                         (size_t)kHalo * (NG * 16 + 8) + (size_t)S * kSYS +
+                         2 * (size_t)de::halo_raw_elems<kTH + 2>(NG * 16)) +
+         sizeof(float) * 2 * NG * 16;
+}
+
+// fn(NG, S) as std::integral_constant values for the forward at (C, F):
+// NG = Cp / 16, S = the tap stride
+template <class Fn>
+cudaError_t with_fwd_shape(int C, int F, Fn fn) {
+  using I1 = std::integral_constant<int, 1>;
+  using I2 = std::integral_constant<int, 2>;
+  using S8 = std::integral_constant<int, 8>;
+  using S16 = std::integral_constant<int, 16>;
+  using S32 = std::integral_constant<int, 32>;
+  if (C <= 16)
+    return F <= 8 ? fn(I1{}, S8{}) : F <= 16 ? fn(I1{}, S16{})
+                                              : fn(I1{}, S32{});
+  return F <= 8 ? fn(I2{}, S8{}) : F <= 16 ? fn(I2{}, S16{})
+                                            : fn(I2{}, S32{});
+}
+
+template <int NG, int S>
+cudaError_t launch_fwd(const bf16* x, const bf16* wm, const float* a,
+                       const float* b, bf16* y, float* stats,
+                       float* partials, int N, int C, int F, int depth,
+                       int h, int w, int relu, int seg, cudaStream_t s) {
+  constexpr size_t smem = fwd_smem<NG, S>();
+  auto kernel = convcomb_kernel<NG, S>;
+  static int slots[16][2];
+  int per_sm = 0, n_sm = 0;
+  cudaError_t err =
+      de::launch_shape(kernel, kThreads, smem, slots, &per_sm, &n_sm);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (w + kTW - 1) / kTW;
+  const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
+  const int nseg = (depth + seg - 1) / seg;
+  dim3 grid(tiles, (N / depth) * nseg);
+  kernel<<<grid, kThreads, smem, s>>>(x, wm, a, b, y, partials, C, F, depth,
+                                      h, w, relu, seg, nseg, tiles_x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_reduce_kernel<<<F, 256, 0, s>>>(partials, stats, grid.x * grid.y);
+  return cudaGetLastError();
 }
 
 // Data gradient. ``NC`` = Cp, the wgmma N; ``NG`` = Fp / 16 (both
 // constants, so that every register operand of the products is known to
 // the compiler). The forward's ring over a
 // depth segment, one warpgroup a block: per input row m the block stages
-// ge(m)'s 6x18-pixel halo in shared memory (Fp channels fastest), then
+// ge(m)'s 6x18-pixel halo in shared memory (Fp channels fastest;
+// conv_bwd.cuh's two steps, copy and transpose), then
 // per 3x3 shift s loads the A fragments (warp w: tile row w, 16 pixels)
 // and issues the three taps' products into acc[q] (slot q = tap 2 - q, B
 // = the taps' flipped, transposed weights [9 Fp, Cp], read from wm's
@@ -324,7 +395,9 @@ convcomb_dx_kernel(const bf16* __restrict__ ge,
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sB = reinterpret_cast<bf16*>(smem);                  // [3][K, NC]
   bf16* sU = sB + 3 * K * NC;                                 // [kHalo, us]
-  float* sRed = reinterpret_cast<float*>(sU + kHalo * us);    // [4][NC][2]
+  bf16* sRaw = sU + kHalo * us;            // [Fp, kTH + 2, kRawW]
+  float* sRed = reinterpret_cast<float*>(
+      sRaw + de::halo_raw_elems<kTH + 2>(Fp));                // [4][NC][2]
 
   const uint4 z4 = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < (3 * K * NC + kHalo * us) / 8; i += kThreads)
@@ -390,10 +463,16 @@ convcomb_dx_kernel(const bf16* __restrict__ ge,
 
   const int m_begin = d0 > 0 ? d0 - 1 : 0;
   const int m_end = d1 < depth ? d1 : depth - 1;
+  const bool fast = w % 8 == 0 && de::aligned16(ge);
   for (int m = m_begin; m <= m_end; ++m) {
     const size_t g0 = ((size_t)item * depth + m) * F * HW;
-    __syncthreads();                 // the last row's loads are done
-    de::stage_halo<kTH>(sU, us, F, h, w, HW, ty0, tx0, ge + g0);
+    de::stage_halo_raw<kTH + 2>(sRaw, F, h, w, HW, ty0, tx0, ge + g0, fast);
+    de::cp_async_commit();
+    de::cp_async_wait<0>();
+    __syncthreads();                 // the copies landed; the last row's
+                                     // products are done with sU
+    de::halo_from_raw<kTH + 2>(sU, us, Fp, F, sRaw, h, w, ty0, tx0,
+                               [](int, float v) { return v; });
     __syncthreads();
 
     float acc[3][NC / 2];
@@ -468,7 +547,8 @@ cudaError_t launch_dx(const bf16* ge, const bf16* wm, const bf16* x,
                       int depth, int h, int w, int relu, int seg,
                       cudaStream_t s) {
   const size_t smem = sizeof(bf16) * ((size_t)3 * 9 * NG * 16 * NC +
-                                      (size_t)kHalo * (NG * 16 + 8)) +
+                                      (size_t)kHalo * (NG * 16 + 8) +
+                                      de::halo_raw_elems<kTH + 2>(NG * 16)) +
                       sizeof(float) * kWarps * NC * 2;
   cudaError_t err = cudaFuncSetAttribute(
       convcomb_dx_kernel<NC, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -489,40 +569,37 @@ cudaError_t launch_dx(const bf16* ge, const bf16* wm, const bf16* x,
 
 }  // namespace
 
-// x [N, C, h*w] bf16; wk [3, Fp, 9*Cp] bf16 packed taps (K index s*Cp + c,
-// s = kh*3 + kw, zero padded); a, b [C] f32; y [N, F, h*w] bf16; stats
-// [F, 2] f32; partials [F, ceil(h/4) * ceil(w/16) * (N / depth) *
-// ceil(depth / seg), 2] f32 scratch. All contiguous. ``seg``: output rows
-// per block.
-extern "C" int convcomb_fwd(const void* x, const void* wk, const void* a,
+// x [N, C, h*w] bf16; wm [3F, C, 3, 3] bf16 (the module's tap-stacked
+// weight, read as it is); a, b [C] f32; y [N, F, h*w] bf16; stats [F, 2]
+// f32; partials [F, ceil(h/4) * ceil(w/16) * (N / depth) * ceil(depth /
+// seg), 2] f32 scratch. All contiguous. ``seg``: output rows per block. Two
+// launches on ``stream``: the layer, and the fixed-order reduce of its
+// per-block sums into stats. C, F <= 32.
+extern "C" int convcomb_fwd(const void* x, const void* wm, const void* a,
                             const void* b, void* y, void* stats,
-                            void* partials, int N, int C, int Cp, int F,
-                            int Fp, int depth, int h, int w, int relu,
-                            int seg, void* stream) {
-  if (F > kMaxF || (Fp != 16 && Fp != 32) || Fp < F || Cp % 16 ||
-      Cp < C || N % depth || seg < 1)
+                            void* partials, int N, int C, int F, int depth,
+                            int h, int w, int relu, int seg, void* stream) {
+  if (C < 1 || F < 1 || C > kMaxF || F > kMaxF || N < 1 || depth < 1 ||
+      N % depth || h < 1 || w < 1 || seg < 1)
     return cudaErrorInvalidValue;
-  const int tiles_x = (w + kTW - 1) / kTW;
-  const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
-  const int nseg = (depth + seg - 1) / seg;
-  const size_t smem = sizeof(bf16) * ((size_t)3 * Fp * (9 * Cp + 8) +
-                                      (size_t)kHalo * (Cp + 8)) +
-                      sizeof(float) * kWarps * 16 * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      convcomb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(tiles, (N / depth) * nseg);
-  convcomb_kernel<<<grid, kThreads, smem, s>>>(
-      (const bf16*)x, (const bf16*)wk, (const float*)a, (const float*)b,
-      (bf16*)y, (float*)partials, C, Cp, F, Fp, depth, h, w, relu,
-      seg, nseg, tiles_x);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stats_reduce_kernel<<<F, 256, 0, s>>>((const float*)partials,
-                                         (float*)stats, grid.x * grid.y);
-  return cudaGetLastError();
+  return with_fwd_shape(C, F, [&](auto ng, auto st) {
+    return launch_fwd<decltype(ng)::value, decltype(st)::value>(
+        (const bf16*)x, (const bf16*)wm, (const float*)a, (const float*)b,
+        (bf16*)y, (float*)stats, (float*)partials, N, C, F, depth, h, w, relu,
+        seg, (cudaStream_t)stream);
+  });
+}
+
+// *per_sm = the forward's resident blocks per SM at (C, F) (the wrapper
+// picks the segment length from it)
+extern "C" int convcomb_fwd_occupancy(int C, int F, void* per_sm) {
+  if (C < 1 || F < 1 || C > kMaxF || F > kMaxF) return cudaErrorInvalidValue;
+  return with_fwd_shape(C, F, [&](auto ng, auto st) {
+    constexpr int NG = decltype(ng)::value, S = decltype(st)::value;
+    int slots[16][2] = {}, n_sm = 0;
+    return de::launch_shape(convcomb_kernel<NG, S>, kThreads,
+                            fwd_smem<NG, S>(), slots, (int*)per_sm, &n_sm);
+  });
 }
 
 // The backward of convcomb_fwd (convcomb_pallas.py:_bwd_kernel), in six

@@ -1,5 +1,5 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a only) for the port's
-// backward conv kernels (convcomb.cu, convbn2d.cu).
+// fused conv kernels, forward and backward (convcomb.cu, convbn2d.cu).
 //
 // One product is D[64, N] += A[64, 16] . B[16, N], bf16 in, f32 sums,
 // issued by the four warps of a warpgroup together and run asynchronously
@@ -60,7 +60,8 @@ __device__ inline void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// D[64, N] += A (registers) . B (descriptor), N in {16, 32, ..., 96}
+// D[64, N] += A (registers) . B (descriptor), N in {16, 24, 32, 48, ...,
+// 96}
 template <int N>
 struct Wgmma;
 
@@ -75,6 +76,22 @@ struct Wgmma<16> {
         "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  __device__ static void mma(float (&d)[12], const unsigned (&a)[4],
+                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };

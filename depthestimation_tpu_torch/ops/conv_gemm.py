@@ -1,5 +1,17 @@
-"""The GEMMs of the fused conv blocks' backward, in the orientation of the
-Hopper kernels (``csrc/convbn2d.cu``, ``csrc/convcomb.cu``).
+"""The GEMMs of the fused conv blocks, forward and backward, in the
+orientation of the Hopper kernels (``csrc/convbn2d.cu``,
+``csrc/convcomb.cu``).
+
+Both forward kernels compute one implicit GEMM on the tensor cores,
+``P[p, n] = sum_k A[p, k] B[k, n]`` over output pixels p (wgmma's M), with
+``A = im2col(u)`` of the normalized input ``u = bf16(act(x a + b))`` (K
+index ``s*Cp + c``: channel c at 3x3 shift s, s = kh*3 + kw) and ``B`` the
+weights read from the module's layout, ``B[s*Cp + c, f] = W[f, c, s]``
+(N = Fp). Base3D's layer stacks its three depth taps on N with a stride S
+of 8, 16 or 32 (``tap_stride``): ``B[s*Cp + c, t*S + f] = wm[t*F + f, c,
+s]``, so that one thread's accumulators hold all three taps of a channel
+and the depth ring ``y(n) = bf16(bf16(t1(n) + t0(n-1)) + t2(n+1))`` runs on
+them (taps rounded to bf16, masked at the item's depth edges).
 
 Both backward kernels compute two products on the tensor cores:
 
@@ -18,7 +30,7 @@ Both backward kernels compute two products on the tensor cores:
 
 The functions below compute the same products with ``torch.matmul`` in
 f32, padded as the kernels pad, so the CPU tests hold this decomposition
-against the plain backward; ``dw_split`` is the weight-gradient launch's
+against the plain versions; ``dw_split`` is the weight-gradient launch's
 division of M among warpgroups, which the wrappers pass to the kernels.
 """
 
@@ -174,3 +186,72 @@ def convcomb_bwd_gemm(x, wm, a, b, y, gy, gstats, depth: int, h: int,
     p = im2col(_u(xs, a, b, act).float(), cp).t() @ g            # [9cp, np_]
     return (dx.reshape(n, c, h * w), weight_from_gemm(p, 3 * f, c, cp), da,
             db)
+
+
+def tap_stride(f: int) -> int:
+    """The column stride of Base3D's stacked taps in the forward's N
+    (``csrc/convcomb.cu``, ``convcomb_fwd``): 8, 16 or 32, at least F."""
+    return 8 if f <= 8 else 16 if f <= 16 else 32
+
+
+def fwd_weights(w: torch.Tensor, cp: int, np_: int) -> torch.Tensor:
+    """W [F, C, 3, 3] -> B [9*cp, np_], ``B[s*cp + c, f] = W[f, c, s]``
+    (the forward kernels' shared-memory B, zero padded)."""
+    f, c = w.shape[:2]
+    wf = w.reshape(f, c, 9).permute(2, 1, 0)                     # [9, C, F]
+    return F.pad(wf, (0, np_ - f, 0, cp - c)).reshape(9 * cp, np_)
+
+
+def convcomb_fwd_weights(wm: torch.Tensor, cp: int) -> torch.Tensor:
+    """Base3D's wm [3F, C, 3, 3] -> B [9*cp, 3*S] with the taps stacked on
+    N at stride S = ``tap_stride(F)``: ``B[s*cp + c, t*S + f] = wm[t*F + f,
+    c, s]``."""
+    f = wm.shape[0] // 3
+    st = tap_stride(f)
+    return torch.cat([fwd_weights(wm[t * f:(t + 1) * f], cp, st)
+                      for t in range(3)], 1)
+
+
+def _stats(y: torch.Tensor) -> torch.Tensor:
+    """(sum y, sum y^2) per channel (dim 1) in f32."""
+    yf = y.float()
+    dims = (0,) + tuple(range(2, y.dim()))
+    return torch.stack([yf.sum(dim=dims), (yf * yf).sum(dim=dims)], dim=-1)
+
+
+def convbn2d_fwd_gemm(x, w, a, b, act: str = "none"):
+    """The 2D layer's forward as the kernel's GEMM (f32 products of the
+    bf16 operands, y rounded to x's dtype): x [N, C, H, W], w [F, C, 3, 3].
+    Returns (y, stats [F, 2] f32), the contract of
+    ``convbn2d_kernel.convbn2d_block_plain``."""
+    n, c, h, wd = x.shape
+    f = w.shape[0]
+    cp, fp = round16(c), round16(f)
+    p = im2col(_u(x, a, b, act).float(), cp) @ fwd_weights(w.float(), cp, fp)
+    y = p[:, :f].reshape(n, h, wd, f).permute(0, 3, 1, 2).to(x.dtype)
+    return y, _stats(y)
+
+
+def convcomb_fwd_gemm(x, wm, a, b, depth: int, h: int, w: int,
+                      relu_in: bool = False):
+    """Base3D's layer forward as the kernel's GEMM over the stacked taps,
+    then the depth ring with the kernel's rounding points: each tap
+    ``t_k = bf16(P[:, k*S + f])``, ``part(n) = bf16(t1(n) + t0(n-1))``
+    (``t1(n)`` at an item's first row), ``y(n) = bf16(part(n) +
+    t2(n+1))`` (``part(n)`` at its last). x [N, C, h*w], wm [3F, C, 3, 3].
+    Returns (y [N, F, h*w], stats [F, 2] f32), the contract of
+    ``convcomb_kernel.convbn_block_plain``."""
+    n, c, _ = x.shape
+    f = wm.shape[0] // 3
+    cp, st = round16(c), tap_stride(f)
+    xs = x.reshape(n, c, h, w)
+    u = _u(xs, a, b, "relu" if relu_in else "none").float()
+    p = im2col(u, cp) @ convcomb_fwd_weights(wm.float(), cp)
+    taps = [p[:, k * st:k * st + f].reshape(n, h * w, f).transpose(1, 2)
+            .to(x.dtype).float() for k in range(3)]
+    row = torch.arange(n) % depth
+    dn = (row > 0).reshape(-1, 1, 1)
+    up = (row < depth - 1).reshape(-1, 1, 1)
+    part = (taps[1] + torch.roll(taps[0], 1, 0) * dn).to(x.dtype).float()
+    y = (part + torch.roll(taps[2], -1, 0) * up).to(x.dtype)
+    return y, _stats(y)

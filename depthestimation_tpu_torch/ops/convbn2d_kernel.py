@@ -136,23 +136,22 @@ def _check(x, w, a, b, act):
                          f"{_MAX_CH}, got C={c}, F={w.shape[0]}")
 
 
-def _fwd(x, w, a, b, act):
-    """The forward kernel on checked CUDA tensors."""
+def convbn2d_block_fwd(x, w, a, b, act: str = "none"):
+    """The forward kernel (``csrc/convbn2d.cu``, ``convbn2d_fwd``: wgmma
+    products, W read in the module's own layout) on checked CUDA tensors:
+    the contract of ``convbn2d_block_plain``. Allocates y, the stats and
+    the kernel's per-block partial sums, and launches no PyTorch kernel."""
     n, c, h, wd = x.shape
     f = w.shape[0]
-    cp, fp = _round16(c), _round16(f)
     dev = x.device
-    # kernel weight layout [Fp, 9, Cp]: K index (kh*3 + kw)*Cp + c
-    wk = torch.zeros((fp, 9, cp), dtype=torch.bfloat16, device=dev)
-    wk[:f, :, :c] = w.reshape(f, c, 9).permute(0, 2, 1)
+    cap = _units(n, h, wd, _TILE)       # the kernel takes <= cap blocks
     y = torch.empty((n, f, h, wd), dtype=torch.bfloat16, device=dev)
     stats = torch.empty((f, 2), dtype=torch.float32, device=dev)
-    partials = torch.empty((f, _units(n, h, wd, _TILE), 2),
-                           dtype=torch.float32, device=dev)
+    partials = torch.empty((f, cap, 2), dtype=torch.float32, device=dev)
     cuda_lib.library().call(
-        "convbn2d_fwd", x.data_ptr(), wk.data_ptr(), a.data_ptr(),
+        "convbn2d_fwd", x.data_ptr(), w.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), stats.data_ptr(), partials.data_ptr(),
-        n, c, cp, f, fp, h, wd, ACTS.index(act), cuda_lib.stream_ptr(dev))
+        n, c, f, h, wd, ACTS.index(act), cap, cuda_lib.stream_ptr(dev))
     convbn2d_block.launches += 1
     return y, stats
 
@@ -209,7 +208,7 @@ class _ConvBN2d(torch.autograd.Function):
         if x.device.type == "cpu":
             y, stats = convbn2d_block_plain(x, w, a, b, act)
         else:
-            y, stats = _fwd(x, w, a, b, act)
+            y, stats = convbn2d_block_fwd(x, w, a, b, act)
         ctx.save_for_backward(x, w, a, b, y)
         return y, stats
 

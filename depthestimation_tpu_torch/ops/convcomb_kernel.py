@@ -17,6 +17,9 @@ input and output only (``x, wm, a, b, y``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -27,7 +30,7 @@ from depthestimation_tpu_torch.ops.conv_gemm import round16 as _round16
 
 _TILE = (4, 16)    # output pixels per block, rows x cols (csrc kTH, kTW)
 _DW_TILE = (8, 16)  # pixels per unit of the weight gradient (kDwTH, kDwTW)
-_MAX_F = 32        # csrc/convcomb.cu kMaxF
+_MAX_F = 32        # csrc/convcomb.cu kMaxF: C and F
 
 
 def pack_wm(weight: torch.Tensor) -> torch.Tensor:
@@ -141,9 +144,9 @@ def _check(x, wm, a, b, depth, h, w):
         raise ValueError(f"convbn_block: wm {tuple(wm.shape)}, a "
                          f"{tuple(a.shape)}, b {tuple(b.shape)} do not match "
                          f"C={c}")
-    if wm.shape[0] // 3 > _MAX_F:
-        raise ValueError(f"convbn_block: the kernel takes F <= {_MAX_F}, "
-                         f"got {wm.shape[0] // 3}")
+    if wm.shape[0] // 3 > _MAX_F or c > _MAX_F:
+        raise ValueError(f"convbn_block: the kernels take C, F <= {_MAX_F}, "
+                         f"got C={c}, F={wm.shape[0] // 3}")
 
 
 def pixel_tiles(h: int, w: int) -> int:
@@ -151,19 +154,42 @@ def pixel_tiles(h: int, w: int) -> int:
 
 
 def segment_rows(items: int, depth: int, tiles: int, n_sm: int,
-                 lengths=(16, 8), per_sm: int = 8) -> int:
-    """Output rows per block. A block streams its depth segment and
-    stages each input row once, so a long segment saves rebuilds (one halo
-    row per side: (seg + 2) / seg builds per output row) and, in the
-    backward, loads of the weights; but the grid must still fill the card.
-    Take the longest of ``lengths`` that gives at least ``per_sm`` blocks
-    per SM, else 4. The forward takes 16 or 8 rows at 8 blocks per SM; the
-    backward, whose blocks read all three taps' weights first, up to a
-    whole item's depth at 4 blocks per SM."""
+                 lengths=(64, 32, 16, 8), per_sm: int = 4) -> int:
+    """Output rows per block of the backward's ring kernel. A block streams
+    its depth segment and stages each input row once, so a long segment
+    saves rebuilds (one halo row per side: (seg + 2) / seg builds per
+    output row) and loads of all three taps' weights; but the grid must
+    still fill the card. Take the longest of ``lengths`` that gives at
+    least ``per_sm`` blocks per SM, else 4."""
     for seg in lengths:
         if tiles * items * _ceil_div(depth, seg) >= per_sm * n_sm:
             return seg
     return 4
+
+
+def forward_segment(items: int, depth: int, tiles: int, slots: int,
+                    lengths=(64, 32, 16, 8, 4)) -> int:
+    """Output rows per block of the forward: the length that minimizes
+    the waves of resident blocks times the rows a block stages,
+    ``ceil(blocks / slots) * (min(seg, depth) + 2)`` with ``slots`` the
+    blocks the card holds at once (the longest on a tie). A wave's blocks
+    run side by side, so the model charges a partial last wave in full;
+    on an H100 (the forward of C32->F32, C5->F32 and C32->F1 at B = 8
+    and 1) it picked the fastest length or one within 7% of it."""
+    def cost(seg):
+        blocks = tiles * items * _ceil_div(depth, seg)
+        return _ceil_div(blocks, slots) * (min(seg, depth) + 2)
+    return min(lengths, key=lambda seg: (cost(seg), -seg))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_slots(c: int, f: int, n_sm: int) -> int:
+    """Blocks of the forward kernel at (C, F) that the card holds at once
+    (the kernel's occupancy query times the SMs)."""
+    per_sm = ctypes.c_int(0)
+    cuda_lib.library().call("convcomb_fwd_occupancy", c, f,
+                            ctypes.addressof(per_sm))
+    return max(per_sm.value, 1) * n_sm
 
 
 class _ConvComb(torch.autograd.Function):
@@ -177,24 +203,7 @@ class _ConvComb(torch.autograd.Function):
             y, stats = convbn_block_plain(x, wm, a, b, depth, h, w, relu_in)
             ctx.save_for_backward(x, wm, a, b, y)
             return y, stats
-        n, c, hw = x.shape
-        f = wm.shape[0] // 3
-        fp, cp = _round16(f), _round16(c)
-        # kernel weight layout [3, Fp, 9*Cp], K index = (kh*3 + kw)*Cp + c
-        wk = torch.zeros((3, fp, 9, cp), dtype=torch.bfloat16,
-                         device=x.device)
-        wk[:, :f, :, :c] = wm.reshape(3, f, c, 9).permute(0, 1, 3, 2)
-        y = torch.empty((n, f, hw), dtype=torch.bfloat16, device=x.device)
-        stats = torch.empty((f, 2), dtype=torch.float32, device=x.device)
-        seg, nblk = _grid(n, depth, h, w, x.device)
-        partials = torch.empty((f, nblk, 2), dtype=torch.float32,
-                               device=x.device)
-        cuda_lib.library().call(
-            "convcomb_fwd", x.data_ptr(), wk.data_ptr(), a.data_ptr(),
-            b.data_ptr(), y.data_ptr(), stats.data_ptr(), partials.data_ptr(),
-            n, c, cp, f, fp, depth, h, w, int(bool(relu_in)), seg,
-            cuda_lib.stream_ptr(x.device))
-        convbn_block.launches += 1
+        y, stats = convbn_block_fwd(x, wm, a, b, depth, h, w, relu_in)
         ctx.save_for_backward(x, wm, a, b, y)
         return y, stats
 
@@ -212,12 +221,39 @@ class _ConvComb(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _grid(n: int, depth: int, h: int, w: int, device, backward=False):
-    """(segment rows, blocks) of the ring kernels' launch."""
+def _grid(n: int, depth: int, h: int, w: int, device, cf=None):
+    """(segment rows, blocks) of a ring kernel's launch: the forward's
+    (``cf`` = (C, F)) or the backward's."""
     tiles = pixel_tiles(h, w)
-    seg = segment_rows(n // depth, depth, tiles, cuda_lib.sm_count(device),
-                       *(((64, 32, 16, 8), 4) if backward else ()))
+    n_sm = cuda_lib.sm_count(device)
+    if cf is None:
+        seg = segment_rows(n // depth, depth, tiles, n_sm)
+    else:
+        seg = forward_segment(n // depth, depth, tiles,
+                              _fwd_slots(*cf, n_sm))
     return seg, tiles * (n // depth) * _ceil_div(depth, seg)
+
+
+def convbn_block_fwd(x, wm, a, b, depth: int, h: int, w: int,
+                     relu_in: bool = False):
+    """The forward kernel (``csrc/convcomb.cu``, ``convcomb_fwd``: wgmma
+    products, wm read in the module's own layout) on checked CUDA tensors:
+    the contract of ``convbn_block_plain``. Allocates y, the stats and the
+    kernel's per-block partial sums, and launches no PyTorch kernel."""
+    n, c, hw = x.shape
+    f = wm.shape[0] // 3
+    dev = x.device
+    y = torch.empty((n, f, hw), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((f, 2), dtype=torch.float32, device=dev)
+    seg, nblk = _grid(n, depth, h, w, dev, (c, f))
+    partials = torch.empty((f, nblk, 2), dtype=torch.float32, device=dev)
+    cuda_lib.library().call(
+        "convcomb_fwd", x.data_ptr(), wm.data_ptr(), a.data_ptr(),
+        b.data_ptr(), y.data_ptr(), stats.data_ptr(), partials.data_ptr(),
+        n, c, f, depth, h, w, int(bool(relu_in)), seg,
+        cuda_lib.stream_ptr(dev))
+    convbn_block.launches += 1
+    return y, stats
 
 
 def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
@@ -230,9 +266,6 @@ def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
     _check(x, wm, a, b, depth, h, w)
     n, c, hw = x.shape
     f = wm.shape[0] // 3
-    if c > _MAX_F:
-        raise ValueError(f"convbn_block backward: the kernel takes C <= "
-                         f"{_MAX_F}, got {c}")
     for name, t, dt, shape in (("y", y, torch.bfloat16, (n, f, hw)),
                                ("gy", gy, torch.bfloat16, (n, f, hw)),
                                ("gstats", gstats, torch.float32, (f, 2))):
@@ -241,7 +274,7 @@ def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
             raise ValueError(f"convbn_block backward: {name} must be a "
                              f"contiguous {dt} {shape} tensor on {x.device}")
     dev = x.device
-    seg, nblk = _grid(n, depth, h, w, dev, backward=True)
+    seg, nblk = _grid(n, depth, h, w, dev)
     nsplit, wgs = dw_split(9 * _round16(c))
     units = n * _ceil_div(h, _DW_TILE[0]) * _ceil_div(w, _DW_TILE[1])
     dw_blocks = max(1, min(units, cuda_lib.sm_count(dev) // nsplit))
@@ -273,8 +306,7 @@ def convbn_block(x, wm, a, b, depth: int, h: int, w: int,
     ``convbn_block_bwd_plain`` for the contract.
 
     A CPU tensor runs the plain versions. A CUDA tensor launches the
-    kernels (x, wm bf16; a, b f32; contiguous; F <= 32, C <= 32 for the
-    backward) or raises.
+    kernels (x, wm bf16; a, b f32; contiguous; C, F <= 32) or raises.
     """
     if x.device.type != "cpu":
         _check(x, wm, a, b, depth, h, w)

@@ -35,10 +35,10 @@ _SIGNATURES = {
     "sweep_stage2_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                          _I, _I, _I, _I, _I, _I, _VP],
     "sweep_stage2_bwd": [_VP] * 10 + [_I] * 6 + [_VP],
-    "convcomb_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "convcomb_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
+    "convcomb_fwd_occupancy": [_I, _I, _VP],
     "convcomb_bwd": [_VP] * 14 + [_I] * 11 + [_VP],
-    "convbn2d_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
+    "convbn2d_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "convbn2d_bwd": [_VP] * 14 + [_I] * 10 + [_VP],
     "tap_combine_fwd": [_VP] * 2 + [_I] * 5 + [_VP],
     "tap_combine_bwd": [_VP] * 2 + [_I] * 5 + [_VP],

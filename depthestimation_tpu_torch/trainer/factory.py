@@ -1,6 +1,7 @@
 """Trainer factory (port of ``depthestimation_tpu/trainer/factory.py``):
 the flow trainers. The depth trainers ("default", "sweep") are not ported
-yet (ROADMAP.md, queue 1 items 7 and 11)."""
+yet (ROADMAP.md, queue 1: "Depth trainer and CLI" and "Off-main-path
+models")."""
 
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ def get_trainer(cfg):
         return SintelARTrainer
     if name == "default":
         raise NotImplementedError(
-            "trainer 'default' is not ported yet (ROADMAP.md, queue 1 item "
-            "7)")
+            "trainer 'default' is not ported yet (ROADMAP.md, queue 1: "
+            "\"Depth trainer and CLI\")")
     if name == "sweep":
         raise NotImplementedError(
-            "trainer 'sweep' is not ported yet (ROADMAP.md, queue 1 item "
-            "11)")
+            "trainer 'sweep' is not ported yet (ROADMAP.md, queue 1: "
+            "\"Off-main-path models\")")
     raise ValueError(f"unknown trainer {name!r}")

@@ -110,9 +110,10 @@ def test_backward_segments_take_whole_items_where_the_card_stays_full():
     """The backward ring kernel reads all three taps' weights per block,
     so it takes the longest depth segment that still gives 4 blocks per
     SM: a whole item's 64 rows at the B=8 step (96 tiles x 8 items), 8
-    rows at B=1; the forward keeps its 16 / 8 / 4."""
+    rows at B=1; ``segment_rows``'s defaults are the backward's (the
+    forward has its own, ``forward_segment``)."""
     from depthestimation_tpu_torch.ops.convcomb_kernel import segment_rows
     bwd = ((64, 32, 16, 8), 4)
     assert segment_rows(8, 64, 96, 132, *bwd) == 64
     assert segment_rows(1, 64, 96, 132, *bwd) == 8
-    assert segment_rows(8, 64, 96, 132) == 16
+    assert segment_rows(8, 64, 96, 132) == 64

@@ -57,11 +57,18 @@ def test_sweep_kernel_matches_plain(dev, n, v, c1, d, h, w):
                                    atol=1e-2 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("n,depth,c,f,h,w", [(16, 8, 5, 32, 12, 16),
-                                             (16, 8, 32, 1, 7, 9),
-                                             (40, 20, 8, 16, 9, 11),
-                                             (3, 1, 5, 8, 6, 10),
-                                             (64, 64, 32, 32, 64, 96)])
+# the main path's shape and small ones, then the wgmma tiling's edges:
+# h and w no multiple of the 4x16 tile, odd w, w % 8 == 0 with a tile half
+# outside, depth shorter than a segment and one item, C = 5, F = 1, and a
+# tap stride of 32 for F = 20
+_CC_SHAPES = [(16, 8, 5, 32, 12, 16), (16, 8, 32, 1, 7, 9),
+              (40, 20, 8, 16, 9, 11), (3, 1, 5, 8, 6, 10),
+              (64, 64, 32, 32, 64, 96), (8, 4, 32, 32, 9, 23),
+              (1, 1, 16, 1, 5, 7), (6, 3, 17, 11, 3, 33),
+              (24, 24, 5, 1, 7, 19), (20, 20, 32, 20, 6, 24)]
+
+
+@pytest.mark.parametrize("n,depth,c,f,h,w", _CC_SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
 def test_convcomb_kernel_matches_plain(dev, n, depth, c, f, h, w, relu):
     gen = torch.Generator().manual_seed(n + c + f + relu)
@@ -313,9 +320,14 @@ def _convbn2d_data(gen, n, c, f, h, w, dev):
 _C2_SHAPES = [(2, 8, 8, 8, 16), (3, 12, 12, 9, 13), (2, 5, 40, 7, 21),
               (4, 32, 32, 16, 24), (2, 64, 64, 16, 24), (1, 67, 67, 12, 20),
               (1, 67, 64, 8, 16), (2, 80, 33, 10, 35)]
+# the wgmma tiling's edges: C = F = 80, one image, F = 1, odd widths, h
+# and w no multiple of the 8x16 unit, the decoder tail's C = 67 -> 67, 64
+# at a width that is a multiple of 8 with a ragged last tile
+_C2_EDGES = [(1, 80, 80, 9, 37), (1, 16, 1, 3, 5), (3, 48, 17, 17, 33),
+             (1, 67, 67, 10, 40), (2, 67, 64, 9, 24)]
 
 
-@pytest.mark.parametrize("n,c,f,h,w", _C2_SHAPES)
+@pytest.mark.parametrize("n,c,f,h,w", _C2_SHAPES + _C2_EDGES)
 @pytest.mark.parametrize("act", c2.ACTS)
 def test_convbn2d_kernel_matches_plain(dev, n, c, f, h, w, act):
     """The bounds of tests/test_convbn2d_pallas.py: y within 3% of max|y|,
@@ -336,8 +348,7 @@ def test_convbn2d_kernel_matches_plain(dev, n, c, f, h, w, act):
 
 # the forward's shapes, then the wgmma tiling's edges: C = F = 80, one
 # image, widths no multiple of the 8x16 unit
-_C2_BWD_SHAPES = _C2_SHAPES + [(1, 80, 80, 9, 37), (1, 16, 1, 3, 5),
-                               (3, 48, 17, 17, 33)]
+_C2_BWD_SHAPES = _C2_SHAPES + _C2_EDGES[:3]
 
 
 @pytest.mark.parametrize("n,c,f,h,w", _C2_BWD_SHAPES)
@@ -396,6 +407,61 @@ def test_backward_kernels_repeat_bit_for_bit(dev, layer):
     torch.cuda.synchronize()
     for g1, g2 in zip(first, second):
         assert torch.equal(g1, g2)
+
+
+def _forward_case(layer, gen, dev):
+    """(the forward wrapper's call, its launch counter) at a ragged shape"""
+    if layer == "convbn2d":
+        x, wt, a, b = _convbn2d_data(gen, 4, 64, 64, 19, 37, dev)
+        return (lambda: c2.convbn2d_block(x, wt, a, b, "relu"),
+                c2.convbn2d_block)
+    x = _randn(gen, 64, 32, 24 * 40).to(dev, torch.bfloat16)
+    wm = _randn(gen, 96, 32, 3, 3, scale=0.2).to(dev, torch.bfloat16)
+    a = (torch.rand(32, generator=gen) * 0.5 + 0.75).to(dev)
+    b = _randn(gen, 32, scale=0.1).to(dev)
+    return (lambda: ck.convbn_block(x, wm, a, b, 16, 24, 40, True),
+            ck.convbn_block)
+
+
+@pytest.mark.parametrize("layer", ["convbn2d", "convcomb"])
+def test_forward_kernels_repeat_bit_for_bit(dev, layer):
+    """No atomics: two launches on the same inputs give equal y and
+    stats."""
+    run, _ = _forward_case(layer, torch.Generator().manual_seed(12), dev)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("layer", ["convbn2d", "convcomb"])
+def test_forward_call_launches_only_its_kernels(dev, layer):
+    """A forward call runs the layer's kernel and its stats reduce and no
+    PyTorch kernel of its own (the weights are read in the module's
+    layout, not packed per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    run, counter = _forward_case(layer, torch.Generator().manual_seed(13),
+                                 dev)
+    run()
+    torch.cuda.synchronize()
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    names = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
+            names.append(ev.key)
+    want = "convbn2d_kernel" if layer == "convbn2d" else "convcomb_kernel"
+    assert len(names) == 2, names
+    assert any(want in nm for nm in names), names
+    assert any("stats_reduce_kernel" in nm for nm in names), names
+    assert not any("at::" in nm or "aten" in nm for nm in names), names
 
 
 def test_convbn2d_autograd_runs_the_kernels(dev):
