@@ -17,7 +17,10 @@ Phases, one line each (a failed phase exits non-zero before the result):
    library call's where one computes the same function (cuDNN's conv),
    and the bound (bytes over 3.35 TB/s or operations over the peak of
    their type, 989 bf16 tensor-core TFLOP/s or 67 f32 TFLOP/s, whichever
-   is larger); each forward and each backward of the two fused conv
+   is larger); the stage-2 sweep at N=1 and N=8 on a sideways and a
+   forward camera step (its launch plan, event and device times, both
+   directions bit-equal over two launches) and on dense matrices at a
+   small shape; each forward and each backward of the two fused conv
    blocks twice, bit-equal; each forward's device time beside its event
    time (``conv_bwd_split.forward_split``, ``torch.profiler``: the host
    work of the wrapper shows apart from the kernels) and each backward's
@@ -175,19 +178,38 @@ def cfg_for(feature_dim, ndepth, w, h, dtype, nmode="exp7_lc", batch=1,
 
 # ------------------------------------------------------------ phase 3
 
-def sweep_inputs(n, c1, d, h, w, gen, dev):
+#: camera steps of the sweep's inputs: (up m, forward m, turn degrees),
+#: each with a sideways part of 0.15 to 0.25 m. Driving (KITTI at 10 Hz)
+#: moves 1 to 2.5 m a frame; the last two steps outgrow the backward's
+#: buffers at the flagship's shape (some blocks take the separable path).
+SWEEP_STEPS = {"sideways": (0.0, 0.0, 0.0), "forward": (0.02, 0.5, 0.0),
+               "forward 1 m": (0.02, 1.0, 0.0),
+               "forward 1.5 m": (0.02, 1.5, 0.0),
+               "forward 2 m": (0.02, 2.0, 0.0), "back 2 m": (0.02, -2.0, 0.0),
+               "turn 5 deg, 1.5 m": (0.02, 1.5, 5.0),
+               "back 2.5 m": (0.02, -2.5, 0.0), "up 2 m": (2.0, 0.0, 0.0)}
+
+
+def sweep_inputs(n, c1, d, h, w, gen, dev, step="sideways"):
     """Stage-2 inputs as the main path builds them: features, and the band
-    matrices of a small sideways camera step (sweep_mats)."""
+    matrices (sweep_mats) of the camera step ``step`` of SWEEP_STEPS: a
+    sideways step has Ry = I; a forward part gives Ry two taps a row and
+    Ry^T up to three."""
     import torch
     from depthestimation_tpu_torch.ops import dpv as dpv_ops
     from depthestimation_tpu_torch.ops.plane_sweep import sweep_mats
+    up, fwd, turn = SWEEP_STEPS[step]
     bf = torch.bfloat16
     fa = torch.randn(n, c1, h, w, generator=gen).to(dev, bf)
     ref = torch.randn(n, c1, h, w, generator=gen).to(dev, bf)
     fr = torch.randn(n, d, h, w, generator=gen).to(dev, bf)
-    rot = torch.eye(3).repeat(n, 1, 1).to(dev)
+    c, s = np.cos(np.deg2rad(turn)), np.sin(np.deg2rad(turn))
+    rot = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                       dtype=torch.float32).repeat(n, 1, 1).to(dev)
     tra = torch.zeros(n, 3)
     tra[:, 0] = -0.15 - 0.1 * torch.rand(n, generator=gen)
+    tra[:, 1] = up
+    tra[:, 2] = fwd
     intr = torch.tensor([[0.58 * w, 0, 0.5 * w], [0, 0.58 * w, 0.5 * h],
                          [0, 0, 1]]).repeat(n, 1, 1).to(dev)
     d_candi = torch.as_tensor(dpv_ops.powerf(D_MIN, D_MAX, d, 1.0),
@@ -209,6 +231,142 @@ def sweep_flops(rxt, ry, c1):
     ny = (ry != 0).sum(dim=(-2, -1)).double()
     macs = ((c1 + 1) * (h_in * nx + ny * x_out)).sum().item()
     return 2.0 * macs + 3.0 * n * d * c1 * y_out * x_out
+
+
+def phase_sweep(card, gen, dev, device_times):
+    """Phase 3's sweep: both directions against the plain versions at the
+    flagship 384x256 shape (h=64, w=96, C1 = 64 + 3, D=64) on the sideways
+    step (the main path's; its times fill the kernels line) and on a
+    forward step, at N=1 and N=8, with event and device times; both
+    directions bit-equal over two launches; the other SWEEP_STEPS at N=8
+    with device times and the blocks on each path; a dense-matrix case
+    (the separable path) against the plain versions at a small shape."""
+    import torch
+    from depthestimation_tpu_torch.ops.sweep_kernel import (
+        launch_plan, sweep_stage2, sweep_stage2_bwd, sweep_stage2_bwd_plain,
+        sweep_stage2_plain)
+    rows = {}
+    for n in (1, 8):
+        print(f"phase 3: sweep_stage2 launch plan N={n}: "
+              f"{launch_plan(n, 1, 67, 64, 64, 96)}", flush=True)
+        for step in ("sideways", "forward"):
+            args = sweep_inputs(n, 67, 64, 64, 96, gen, dev, step)
+            cost, diag = sweep_stage2(*args, 1)
+            again = sweep_stage2(*args, 1)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip((cost, diag), again)),
+                  f"sweep_stage2 N={n} {step}: two launches differ")
+            cost_p, diag_p = sweep_stage2_plain(*args, 1)
+            err = max((cost - cost_p).abs().max().item(),
+                      (diag - diag_p).abs().max().item())
+            # rule 3: one kernel call vs the plain version, 1% of max|plain|
+            for got, want, nm in ((cost, cost_p, "cost"),
+                                  (diag, diag_p, "diag")):
+                bnd = 1e-2 * want.abs().max().item()
+                e = (got - want).abs().max().item()
+                check(np.isfinite(e) and e <= bnd,
+                      f"sweep_stage2 N={n} {step} {nm}: max|err| {e} > {bnd}")
+            ms = cuda_ms(lambda: sweep_stage2(*args, 1), 20)
+            dev_ms = sum(device_times(lambda: sweep_stage2(*args, 1)).values())
+            plain_ms = cuda_ms(lambda: sweep_stage2_plain(*args, 1), 5)
+            flops = sweep_flops(args[3], args[4], 67)
+            bd = bound(nbytes(*args, cost, diag), flops)
+            print(f"phase 3: sweep_stage2 N={n} C1=67 D=64 64x96 bf16 {step}: "
+                  f"max|err| {err:.4g} (cost max "
+                  f"{cost_p.abs().max().item():.4g}), bit-equal; kernel "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+                  f"ms, bound {bd[0]:.4f} ms ({bd[1]}) [{card}]", flush=True)
+            if step == "sideways":
+                rows[("sweep_stage2", n)] = row(err, ms, plain_ms, None, bd)
+
+            # backward, rule 3: within 3% of max|plain| per gradient
+            gc = torch.randn(args[2].shape, generator=gen).to(dev)
+            gd = torch.randn(args[2].shape, generator=gen).to(dev)
+            got = sweep_stage2_bwd(*args, gc, gd, 1)
+            again = sweep_stage2_bwd(*args, gc, gd, 1)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"sweep_stage2 backward N={n} {step}: two launches differ")
+            want = sweep_stage2_bwd_plain(*args, gc, gd, 1)
+            errs = []
+            for g, p, nm in zip(got, want, ("dfa", "dref", "dfr")):
+                e = (g - p).abs().max().item()
+                bnd = 3e-2 * p.abs().max().item()
+                check(np.isfinite(e) and e <= bnd,
+                      f"sweep_stage2 backward N={n} {step} {nm}: max|err| "
+                      f"{e} > {bnd}")
+                errs.append(e)
+            ms = cuda_ms(lambda: sweep_stage2_bwd(*args, gc, gd, 1), 20)
+            dev_ms = sum(device_times(
+                lambda: sweep_stage2_bwd(*args, gc, gd, 1)).values())
+            plain_ms = cuda_ms(
+                lambda: sweep_stage2_bwd_plain(*args, gc, gd, 1), 3)
+            # the backward recomputes the forward's products and runs their
+            # transposes: twice the forward's operations
+            bd = bound(nbytes(*args, gc, gd, *got), 2.0 * flops)
+            print(f"phase 3: sweep_stage2 backward N={n} {step}: max|err| "
+                  f"dfa, dref, dfr {errs[0]:.4g}, {errs[1]:.4g}, "
+                  f"{errs[2]:.4g} (max "
+                  f"{max(p.abs().max().item() for p in want):.4g}), "
+                  f"bit-equal; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                  f"plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}) "
+                  f"[{card}]", flush=True)
+            if step == "sideways":
+                rows[("sweep_stage2_bwd", n)] = row(max(errs), ms, plain_ms,
+                                                    None, bd)
+    # the other steps at N=8: rule 3, each direction's device ms, and the
+    # blocks on each path (ops/sweep_band.py's model of the decision)
+    from depthestimation_tpu_torch.ops.sweep_band import block_paths
+    for step in list(SWEEP_STEPS)[2:]:
+        args = sweep_inputs(8, 67, 64, 64, 96, gen, dev, step)
+        gc = torch.randn(args[2].shape, generator=gen).to(dev)
+        gd = torch.randn(args[2].shape, generator=gen).to(dev)
+        pairs = list(zip(sweep_stage2(*args, 1), sweep_stage2_plain(*args, 1),
+                         (1e-2, 1e-2)))
+        pairs += zip(sweep_stage2_bwd(*args, gc, gd, 1),
+                     sweep_stage2_bwd_plain(*args, gc, gd, 1), (3e-2,) * 3)
+        torch.cuda.synchronize()
+        for (got, want, k), nm in zip(pairs, ("cost", "diag", "dfa", "dref",
+                                              "dfr")):
+            e = (got - want).abs().max().item()
+            check(np.isfinite(e) and e <= k * want.abs().max().item(),
+                  f"sweep_stage2 N=8 {step} {nm}: max|err| {e}")
+        del pairs
+        f_ms = sum(device_times(lambda: sweep_stage2(*args, 1)).values())
+        b_ms = sum(device_times(
+            lambda: sweep_stage2_bwd(*args, gc, gd, 1)).values())
+        paths = block_paths(args[3], args[4], 1)
+        print(f"phase 3: sweep_stage2 N=8 {step}: both directions within "
+              f"rule 3; device ms forward {f_ms:.4f}, backward {b_ms:.4f}; "
+              f"blocks band / separable: forward {paths['fwd']['band']} / "
+              f"{paths['fwd']['separable']}, backward (item, strip) "
+              f"{paths['bwd']['band']} / {paths['bwd']['separable']} "
+              f"[{card}]", flush=True)
+    # dense matrices: the separable path, at a small shape
+    bf = torch.bfloat16
+    n, c1, d, h, w = 4, 9, 8, 13, 21
+    args = (torch.randn(n, c1, h, w, generator=gen).to(dev, bf),
+            torch.randn(n // 2, c1, h, w, generator=gen).to(dev, bf),
+            torch.randn(n, d, h, w, generator=gen).to(dev, bf),
+            (torch.rand(n, d, w, w, generator=gen) * 0.2).to(dev, bf),
+            (torch.rand(n, d, h, h, generator=gen) * 0.2).to(dev, bf))
+    gc = torch.randn(n, d, h, w, generator=gen).to(dev)
+    gd = torch.randn(n, d, h, w, generator=gen).to(dev)
+    pairs = list(zip(sweep_stage2(*args, 2), sweep_stage2_plain(*args, 2),
+                     (1e-2, 1e-2)))
+    pairs += zip(sweep_stage2_bwd(*args, gc, gd, 2),
+                 sweep_stage2_bwd_plain(*args, gc, gd, 2), (3e-2,) * 3)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want, k in pairs:
+        e = (got - want).abs().max().item()
+        check(np.isfinite(e) and e <= k * want.abs().max().item(),
+              f"sweep_stage2 dense N={n} {h}x{w}: max|err| {e}")
+        errs.append(e)
+    print(f"phase 3: sweep_stage2 dense matrices N={n} V=2 C1={c1} D={d} "
+          f"{h}x{w}: forward and backward within rule 3 (max|err| "
+          f"{max(errs):.4g})", flush=True)
+    return rows
 
 
 def _conv_bwd(g, u, w):
@@ -234,63 +392,11 @@ def phase_kernels(card):
     from depthestimation_tpu_torch.ops.convcomb_kernel import (
         convbn_block, convbn_block_bwd, convbn_block_bwd_plain,
         convbn_block_plain)
-    from depthestimation_tpu_torch.ops.sweep_kernel import (
-        sweep_stage2, sweep_stage2_bwd, sweep_stage2_bwd_plain,
-        sweep_stage2_plain)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {}
 
-    # sweep_stage2 at the flagship 384x256 shape: h=64, w=96, C1 = 64 + 3
-    for n in (1, 8):
-        args = sweep_inputs(n, 67, 64, 64, 96, gen, dev)
-        cost, diag = sweep_stage2(*args, 1)
-        torch.cuda.synchronize()
-        cost_p, diag_p = sweep_stage2_plain(*args, 1)
-        err = max((cost - cost_p).abs().max().item(),
-                  (diag - diag_p).abs().max().item())
-        # rule 3: one kernel call vs the plain version, k = 1% of max|plain|
-        for got, want, nm in ((cost, cost_p, "cost"), (diag, diag_p, "diag")):
-            bnd = 1e-2 * want.abs().max().item()
-            e = (got - want).abs().max().item()
-            check(np.isfinite(e) and e <= bnd,
-                  f"sweep_stage2 N={n} {nm}: max|err| {e} > {bnd}")
-        ms = cuda_ms(lambda: sweep_stage2(*args, 1), 10)
-        plain_ms = cuda_ms(lambda: sweep_stage2_plain(*args, 1), 5)
-        flops = sweep_flops(args[3], args[4], 67)
-        bd = bound(nbytes(*args, cost, diag), flops)
-        print(f"phase 3: sweep_stage2 N={n} C1=67 D=64 64x96 bf16: max|err| "
-              f"{err:.4g} (cost max {cost_p.abs().max().item():.4g}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bd[0]:.4f} ms ({bd[1]}) [{card}]", flush=True)
-        rows[("sweep_stage2", n)] = row(err, ms, plain_ms, None, bd)
-
-        # backward, rule 3: within 3% of max|plain| per gradient
-        gc = torch.randn(args[2].shape, generator=gen).to(dev)
-        gd = torch.randn(args[2].shape, generator=gen).to(dev)
-        got = sweep_stage2_bwd(*args, gc, gd, 1)
-        torch.cuda.synchronize()
-        want = sweep_stage2_bwd_plain(*args, gc, gd, 1)
-        errs = []
-        for g, p, nm in zip(got, want, ("dfa", "dref", "dfr")):
-            e = (g - p).abs().max().item()
-            bnd = 3e-2 * p.abs().max().item()
-            check(np.isfinite(e) and e <= bnd,
-                  f"sweep_stage2 backward N={n} {nm}: max|err| {e} > {bnd}")
-            errs.append(e)
-        ms = cuda_ms(lambda: sweep_stage2_bwd(*args, gc, gd, 1), 5)
-        plain_ms = cuda_ms(lambda: sweep_stage2_bwd_plain(*args, gc, gd, 1),
-                           3)
-        # the backward recomputes the forward's products and runs their
-        # transposes: twice the forward's operations
-        bd = bound(nbytes(*args, gc, gd, *got), 2.0 * flops)
-        print(f"phase 3: sweep_stage2 backward N={n}: max|err| dfa, dref, "
-              f"dfr {errs[0]:.4g}, {errs[1]:.4g}, {errs[2]:.4g} (max "
-              f"{max(p.abs().max().item() for p in want):.4g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
-              f"({bd[1]}) [{card}]", flush=True)
-        rows[("sweep_stage2_bwd", n)] = row(max(errs), ms, plain_ms, None,
-                                            bd)
+    rows.update(phase_sweep(card, gen, dev, device_times))
 
     # convbn_block: the issue's padded-TPU shapes (C=8, F=32), (C=32, F=8)
     # and the port's own layers (C=5 entry, C=32 -> 32, C=32 -> 1)

@@ -3,8 +3,8 @@
 shapes: each backward split into the data gradient and the weight
 gradient, or (``--forward``) each forward beside cuDNN's conv.
 
-    python3 conv_bwd_split.py [--forward | --segments] [--root CHECKOUT]
-                              [--tag NAME]
+    python3 conv_bwd_split.py [--forward | --segments | --sweep [STEP ...]]
+                              [--root CHECKOUT] [--tag NAME]
 
 ``CHECKOUT`` (default: this file's directory) is the tree whose
 ``depthestimation_tpu_torch`` is imported and built, so two commits can be
@@ -29,8 +29,10 @@ the wrapper takes to enqueue. Each row also
 has the whole call's ms from CUDA events (the wrapper's host work
 included where it is longer than the kernels'). ``--segments`` times Base3D's
 forward at each depth-segment length beside the one the wrapper picks.
-Prints one JSON line per shape and, last, the card's name and power
-limit.
+``--sweep`` times the stage-2 sweep's forward and backward at phase 3's
+shapes on each camera step of ``chip_smoke.SWEEP_STEPS`` (or the steps
+named), with the blocks on each path. Prints one JSON line per shape and,
+last, the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -230,6 +232,47 @@ def segment_rows_table(dev, gen) -> None:
                                                  (c, f))[0]}), flush=True)
 
 
+def sweep_rows(dev, gen, tag: str, steps: list) -> None:
+    """One JSON line per sweep shape and camera step (chip_smoke.py phase
+    3's inputs: N=1 and N=8, C1=67, D=64, 64x96, chip_smoke.SWEEP_STEPS):
+    each direction's event ms, device ms and device ms by kernel, the
+    launch plan and, where the tree has the model (ops/sweep_band.py), the
+    blocks on each path."""
+    import importlib.util
+    import torch
+    from depthestimation_tpu_torch.ops import sweep_kernel as sk
+    try:
+        from depthestimation_tpu_torch.ops.sweep_band import block_paths
+    except ImportError:         # a tree before the band kernels
+        block_paths = None
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for n in (1, 8):
+        for step in steps or cs.SWEEP_STEPS:
+            args = cs.sweep_inputs(n, 67, 64, 64, 96, gen, dev, step)
+            gc = torch.randn(args[2].shape, generator=gen).to(dev)
+            gd = torch.randn(args[2].shape, generator=gen).to(dev)
+            row = {"tag": tag, "sweep": f"N={n} {step}"}
+            if hasattr(sk, "launch_plan"):
+                row["plan"] = sk.launch_plan(n, 1, 67, 64, 64, 96)
+            if block_paths is not None:
+                row["paths"] = block_paths(args[3], args[4], 1)
+            for key, fn in (("fwd", lambda: sk.sweep_stage2(*args, 1)),
+                            ("bwd", lambda: sk.sweep_stage2_bwd(
+                                *args, gc, gd, 1))):
+                per = device_times(fn, FWD_ITERS)
+                row[key + "_ms"] = cuda_ms(fn, FWD_ITERS)
+                row[key + "_device_ms"] = sum(per.values())
+                row[key + "_kernels"] = {
+                    k[:40]: round(v, 4) for k, v in per.items()}
+            print(json.dumps(row), flush=True)
+            del args, gc, gd
+            torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -248,6 +291,9 @@ def main() -> int:
     ap.add_argument("--segments", action="store_true",
                     help="time Base3D's forward at each depth-segment "
                          "length instead")
+    ap.add_argument("--sweep", nargs="*", metavar="STEP",
+                    help="time the stage-2 sweep's two directions instead, "
+                         "on these camera steps (default: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -260,6 +306,10 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     if args.segments:
         segment_rows_table(dev, gen)
+        print(card_line())
+        return 0
+    if args.sweep is not None:
+        sweep_rows(dev, gen, args.tag, args.sweep)
         print(card_line())
         return 0
     split = forward_split if args.forward else kernel_split

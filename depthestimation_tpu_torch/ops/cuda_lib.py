@@ -32,9 +32,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argtypes (every function returns cudaError_t)
 _SIGNATURES = {
-    "sweep_stage2_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                         _I, _I, _I, _I, _I, _I, _VP],
-    "sweep_stage2_bwd": [_VP] * 10 + [_I] * 6 + [_VP],
+    "sweep_stage2_fwd": [_VP] * 8 + [_I] * 6 + [_VP],
+    "sweep_stage2_bwd": [_VP] * 11 + [_I] * 6 + [_VP],
+    "sweep_stage2_plan": [_I] * 6 + [_VP],
     "convcomb_fwd": [_VP] * 7 + [_I] * 8 + [_VP],
     "convcomb_fwd_occupancy": [_I, _I, _VP],
     "convcomb_bwd": [_VP] * 14 + [_I] * 11 + [_VP],

@@ -16,9 +16,19 @@ the ``[C, D, H, W]`` warped volume; the band matrices come from poses and
 take no gradient (``sweep_pallas.py:34-36``). The kernels take bf16 only,
 like the TPU kernel: an f32 model calls the plain forward directly under
 autograd, which keeps the f32 path's exactness at identity rotation.
+
+The kernels compute on the band matrices' nonzero extents, not on the
+dense squares: each call first scans Rx^T and Ry for the extent of every
+row and column (the taps, in a scratch tensor the wrapper allocates), then
+the forward streams feature rows to blocks of (view, depth group, row
+strip) and the backward gives each block a row strip of one item's dfa and
+dref for a group of channels (``ops/sweep_band.py`` models both on the
+CPU). A dense matrix takes a slower separable path and stays correct.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -104,6 +114,47 @@ def _check(fa, ref, fr, rxt, ry, v):
             f"{tuple(fa.shape)}")
 
 
+def _scratch(n: int, d: int, h: int, w: int, device) -> torch.Tensor:
+    """The kernels' scratch: 16 bytes a band tap (every column and row of
+    Rx^T and Ry of each (n, d)) and 4 bytes per (n, d), its longest
+    extents."""
+    taps = n * d * (2 * w + 2 * h) * 16
+    return torch.empty(taps + -(-n * d * 4 // 16) * 16, dtype=torch.uint8,
+                       device=device)
+
+
+def launch_plan(n: int, v: int, c1: int, d: int, h: int, w: int) -> dict:
+    """The launch shapes the kernels pick at these sizes (needs the
+    library, so a CUDA machine): the forward's depth group, threads,
+    shared bytes and blocks, the backward's channel group, threads, shared
+    bytes, blocks (its dfr blocks included) and resident blocks per SM."""
+    out = (ctypes.c_int * 9)()
+    cuda_lib.library().call("sweep_stage2_plan", n, v, c1, d, h, w,
+                            ctypes.addressof(out))
+    keys = ("fwd_group", "fwd_threads", "fwd_smem", "fwd_blocks",
+            "bwd_group", "bwd_threads", "bwd_smem", "bwd_blocks",
+            "bwd_per_sm")
+    return dict(zip(keys, list(out)))
+
+
+def sweep_stage2_fwd(fa, ref, fr, rxt, ry, v: int):
+    """The forward kernel (``csrc/sweep_stage2.cu``) on CUDA tensors: the
+    contract of ``sweep_stage2_plain``, no autograd."""
+    _check(fa, ref, fr, rxt, ry, v)
+    n, c1, h, w = fa.shape
+    d = fr.shape[1]
+    cost = torch.empty((n, d, h, w), dtype=torch.float32, device=fa.device)
+    diag = torch.empty_like(cost)
+    scratch = _scratch(n, d, h, w, fa.device)
+    cuda_lib.library().call(
+        "sweep_stage2_fwd", fa.data_ptr(), ref.data_ptr(), fr.data_ptr(),
+        rxt.data_ptr(), ry.data_ptr(), cost.data_ptr(), diag.data_ptr(),
+        scratch.data_ptr(), n, v, c1, d, h, w,
+        cuda_lib.stream_ptr(fa.device))
+    sweep_stage2.launches += 1
+    return cost, diag
+
+
 class _Stage2(torch.autograd.Function):
     """Forward and backward of stage 2: the kernels for CUDA tensors, the
     plain versions for CPU tensors. Saves the five inputs only."""
@@ -114,17 +165,7 @@ class _Stage2(torch.autograd.Function):
         ctx.save_for_backward(fa, ref, fr, rxt, ry)
         if fa.device.type == "cpu":
             return sweep_stage2_plain(fa, ref, fr, rxt, ry, v)
-        n, c1, h, w = fa.shape
-        d = fr.shape[1]
-        cost = torch.empty((n, d, h, w), dtype=torch.float32,
-                           device=fa.device)
-        diag = torch.empty_like(cost)
-        cuda_lib.library().call(
-            "sweep_stage2_fwd", fa.data_ptr(), ref.data_ptr(), fr.data_ptr(),
-            rxt.data_ptr(), ry.data_ptr(), cost.data_ptr(), diag.data_ptr(),
-            n, v, c1, d, h, w, cuda_lib.stream_ptr(fa.device))
-        sweep_stage2.launches += 1
-        return cost, diag
+        return sweep_stage2_fwd(fa, ref, fr, rxt, ry, v)
 
     @staticmethod
     def backward(ctx, gcost, gdiag):
@@ -154,11 +195,12 @@ def sweep_stage2_bwd(fa, ref, fr, rxt, ry, gcost, gdiag, v: int):
     dref = torch.empty((n // v, c1, h, w), dtype=torch.float32,
                        device=fa.device)
     dfr = torch.empty((n, d, h, w), dtype=torch.float32, device=fa.device)
+    scratch = _scratch(n, d, h, w, fa.device)
     cuda_lib.library().call(
         "sweep_stage2_bwd", fa.data_ptr(), ref.data_ptr(), fr.data_ptr(),
         rxt.data_ptr(), ry.data_ptr(), gcost.data_ptr(), gdiag.data_ptr(),
-        dfa.data_ptr(), dref.data_ptr(), dfr.data_ptr(), n, v, c1, d, h, w,
-        cuda_lib.stream_ptr(fa.device))
+        dfa.data_ptr(), dref.data_ptr(), dfr.data_ptr(), scratch.data_ptr(),
+        n, v, c1, d, h, w, cuda_lib.stream_ptr(fa.device))
     sweep_stage2.bwd_launches += 1
     return dfa, dref, dfr
 

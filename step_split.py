@@ -17,8 +17,10 @@ into the two sides' forwards, the loss, the backward and Adam, as phase 6
 splits one step; then the device time of every kernel in the two forwards
 of one step (``torch.profiler``; the fused conv blocks' forward kernels
 also apart), so a forward whose host work is longer than its kernels
-shows beside its events. The flagship forward: K calls through the
-kernels at B=8, and the device time of one. Prints one JSON line (the
+shows beside its events, and the stage-2 sweep's device ms in the two
+forwards and in the backward (a profiled step's sweep kernels less the
+forwards'). The flagship forward: K calls through the kernels at B=8,
+and the device time of one (the sweep's apart). Prints one JSON line (the
 medians and every value) and the card's name and power limit.
 """
 
@@ -42,6 +44,12 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _sweep_ms(per: dict) -> float:
+    """Device ms of the stage-2 sweep's kernels among ``per``'s (either
+    commit's names: the band-taps pass counts with the sweep)."""
+    return sum(v for k, v in per.items() if "sweep" in k or "band_taps" in k)
 
 
 def main() -> int:
@@ -95,6 +103,12 @@ def main() -> int:
                 parts[k].append(a.elapsed_time(b))
         del outs, loss
     fwd_kernels = device_times(lambda: forwards(), 1)
+
+    def grads():
+        opt.zero_grad(set_to_none=True)
+        loss_fn(forwards(), [gt, gt]).backward()
+
+    step_kernels = device_times(grads, 1)
     opt.zero_grad(set_to_none=True)
     del model, opt
     torch.cuda.empty_cache()
@@ -124,8 +138,12 @@ def main() -> int:
            "forward_x2_conv_ms": {
                name: sum(v for k, v in fwd_kernels.items() if name in k)
                for name in ("convcomb_kernel", "convbn2d_kernel")},
+           "sweep_fwd_x2_ms": _sweep_ms(fwd_kernels),
+           "sweep_bwd_x2_ms": (_sweep_ms(step_kernels)
+                               - _sweep_ms(fwd_kernels)),
            "flagship_b8_ms": statistics.median(flag),
            "flagship_b8_device_ms": sum(flag_kernels.values()),
+           "flagship_b8_sweep_ms": _sweep_ms(flag_kernels),
            "all": {**{k: [round(x, 3) for x in v] for k, v in parts.items()},
                    "flagship_b8": [round(x, 3) for x in flag]}}
     print(json.dumps(row), flush=True)

@@ -166,6 +166,133 @@ def test_sweep_backward_kernel_matches_plain(dev, n, v, c1, d, h, w):
                                    atol=3e-2 * p_.abs().max().item())
 
 
+def _sweep_band_args(gen, n, v, c1, d, h, w, tz, dev, ty=0.02):
+    """Stage-2 inputs with the band matrices of ``sweep_mats`` (a camera
+    step with a sideways part, ``ty`` m up and ``tz`` m forward), bf16 on
+    the card, and f32 cotangents."""
+    from depthestimation_tpu_torch.ops.plane_sweep import sweep_mats
+    bf = torch.bfloat16
+    tra = torch.zeros(n, 3)
+    tra[:, 0] = -0.15 - 0.1 * torch.rand(n, generator=gen)
+    tra[:, 1] = ty
+    tra[:, 2] = tz
+    intr = torch.tensor([[0.58 * w, 0, 0.5 * w], [0, 0.58 * w, 0.5 * h],
+                         [0, 0, 1]]).repeat(n, 1, 1)
+    rx, ry = sweep_mats(torch.linspace(5.0, 40.0, d), torch.eye(3).repeat(
+        n, 1, 1), tra, intr, h, w)
+    args = (_randn(gen, n, c1, h, w).to(dev, bf),
+            _randn(gen, n // v, c1, h, w).to(dev, bf),
+            _randn(gen, n, d, h, w).to(dev, bf),
+            rx.transpose(-1, -2).contiguous().to(dev, bf),
+            ry.contiguous().to(dev, bf))
+    return args, (_randn(gen, n, d, h, w).to(dev),
+                  _randn(gen, n, d, h, w).to(dev))
+
+
+# the main path's shape (B=8 train step, V=1) and two odd ones
+_SWEEP_BAND = [(8, 1, 67, 64, 64, 96), (4, 2, 67, 16, 13, 21),
+               (6, 3, 7, 4, 9, 30)]
+# (ty, tz) of the camera step: sideways, forward 0.5 m and 1.5 m (band
+# path); 2.5 m back and 2 m up, whose near planes outgrow the buffers at
+# the main path's shape, so one launch mixes band and separable blocks
+# (the vertical step also leaves the image: all-zero rows of Ry)
+_SWEEP_STEPS = {"sideways": (0.0, 0.0), "forward": (0.02, 0.5),
+                "forward1.5": (0.02, 1.5), "back2.5": (0.02, -2.5),
+                "up2": (2.0, 0.0)}
+
+
+@pytest.mark.parametrize("n,v,c1,d,h,w", _SWEEP_BAND)
+@pytest.mark.parametrize("step", list(_SWEEP_STEPS))
+def test_sweep_kernels_on_band_inputs_match_plain(dev, n, v, c1, d, h, w,
+                                                 step):
+    """sweep_mats' matrices: cost and diag within 1% of max|plain|, the
+    gradients 3% (rule 3)."""
+    ty, tz = _SWEEP_STEPS[step]
+    gen = torch.Generator().manual_seed(n + c1 + h + int(10 * tz))
+    args, (gc, gd) = _sweep_band_args(gen, n, v, c1, d, h, w, tz, dev, ty)
+    got = sk.sweep_stage2(*args, v)
+    want = sk.sweep_stage2_plain(*args, v)
+    for g, p_ in zip(got, want):
+        torch.testing.assert_close(g, p_, rtol=0,
+                                   atol=1e-2 * p_.abs().max().item())
+    got = sk.sweep_stage2_bwd(*args, gc, gd, v)
+    want = sk.sweep_stage2_bwd_plain(*args, gc, gd, v)
+    for g, p_ in zip(got, want):
+        torch.testing.assert_close(g, p_, rtol=0,
+                                   atol=3e-2 * p_.abs().max().item())
+
+
+@pytest.mark.parametrize("shift", [1, -3])
+def test_sweep_kernels_on_shifted_rows_match_plain(dev, shift):
+    """Ry a one-tap row shift at every depth (an integer vertical step):
+    the sideways path's taps with Ry != I, so the rows of dw a strip needs
+    lie outside it; rule 3 at the main path's shape."""
+    gen = torch.Generator().manual_seed(16 + shift)
+    n, h = 2, 64
+    args, (gc, gd) = _sweep_band_args(gen, n, 1, 67, 16, h, 96, 0.0, dev,
+                                      0.0)
+    ry = torch.eye(h).roll(shift, 1)
+    ry = ry.triu(shift) if shift > 0 else ry.tril(shift)
+    args = args[:4] + (ry.expand(n, 16, h, h).contiguous().to(
+        dev, torch.bfloat16),)
+    for got, want, k in (
+            (sk.sweep_stage2(*args, 1), sk.sweep_stage2_plain(*args, 1),
+             1e-2),
+            (sk.sweep_stage2_bwd(*args, gc, gd, 1),
+             sk.sweep_stage2_bwd_plain(*args, gc, gd, 1), 3e-2)):
+        for g, p_ in zip(got, want):
+            torch.testing.assert_close(g, p_, rtol=0,
+                                       atol=k * p_.abs().max().item())
+
+
+@pytest.mark.parametrize("tz", [0.0, 0.5, -2.5])
+def test_sweep_kernels_repeat_bit_for_bit(dev, tz):
+    """No atomics: two launches of each direction give equal bits (at
+    -2.5 m a launch at the main path's shape mixes both paths)."""
+    gen = torch.Generator().manual_seed(14)
+    n, v, c1, d, h, w = ((2, 1, 67, 64, 64, 96) if tz < -2
+                         else (4, 2, 67, 16, 13, 21))
+    args, (gc, gd) = _sweep_band_args(gen, n, v, c1, d, h, w, tz, dev)
+    first = sk.sweep_stage2(*args, v) + sk.sweep_stage2_bwd(*args, gc, gd, v)
+    second = sk.sweep_stage2(*args, v) + sk.sweep_stage2_bwd(*args, gc, gd,
+                                                              v)
+    torch.cuda.synchronize()
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_sweep_call_launches_only_its_kernels(dev, direction):
+    """A call runs the band-taps pass and its direction's kernel, no
+    PyTorch kernel (no zero fill, no helper op), and counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(15)
+    args, (gc, gd) = _sweep_band_args(gen, 2, 1, 67, 16, 64, 96, 0.5, dev)
+    if direction == "forward":
+        run, count, want = (lambda: sk.sweep_stage2(*args, 1)), "launches", \
+            "sweep_fwd_kernel"
+    else:
+        run, count, want = (lambda: sk.sweep_stage2_bwd(*args, gc, gd, 1)), \
+            "bwd_launches", "sweep_bwd_kernel"
+    run()
+    torch.cuda.synchronize()
+    before = getattr(sk.sweep_stage2, count)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert getattr(sk.sweep_stage2, count) == before + 1
+    names = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0 and ev.key and not ev.key.startswith("cuda"):
+            names.append(ev.key)
+    assert len(names) == 2, names
+    assert any(want in nm for nm in names), names
+    assert any("band_taps_kernel" in nm for nm in names), names
+
+
 # the forward's shapes, then the wgmma tiling's edges: widths and heights
 # no multiple of the 8x16 unit, one row, C = 32 with F = 32 at a ragged
 # width
