@@ -25,10 +25,11 @@ Phases, one line each (a failed phase exits non-zero before the result):
    time (``conv_bwd_split.forward_split``, ``torch.profiler``: the host
    work of the wrapper shows apart from the kernels) and each backward's
    split into the data and the weight gradient (``kernel_split``); the
-   correlation
-   pair at the five pyramid levels of phase 9,
-   and the flat conv3d op (forward, dx, dW) at Base3D's layer shape in
-   bf16 and f32 beside cuDNN's conv3d and the port's flat ``Conv3d``;
+   correlation pair at the five pyramid levels of phase 9 (with their
+   device times and the sum a flow step launches), and the flat conv3d op
+   (forward, dx, dW) at Base3D's layer shape in bf16 and f32 beside
+   cuDNN's conv3d and the port's flat ``Conv3d``, each bit-equal over two
+   launches;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -72,7 +73,8 @@ Phases, one line each (a failed phase exits non-zero before the result):
    backward, the backward flows' pass taking no gradient, and no other
    kernel of the port); ms per step in 8 turns of the kernel and plain
    paths (the median of each path's 4, and all of them), split into
-   forward, loss, backward and Adam, with peak memory;
+   forward, loss, backward and Adam, with the correlation kernels' device
+   ms in one step and peak memory;
    ``_validate_with_gt`` on 2 batches (finite EPE); one SintelARTrainer
    step at B=2 (20 + 15 correlation launches, finite l_atst and l_ot).
 
@@ -672,9 +674,10 @@ def phase_kernels(card):
 def phase_kernels_flow(card):
     """Phase 3, the flow slice's kernels: the correlation pair at the five
     pyramid levels of phase 9's step, the flat conv3d op at Base3D's layer
-    shape."""
+    shape; each bit-equal over two launches, with device times."""
     import torch
     import torch.nn.functional as F
+    from conv_bwd_split import device_times
     from depthestimation_tpu_torch.models.layers import Conv3d
     from depthestimation_tpu_torch.ops.conv3d_kernel import (
         conv3d_flat_dw, conv3d_flat_dw_plain, conv3d_flat_fwd,
@@ -687,9 +690,15 @@ def phase_kernels_flow(card):
     gen = torch.Generator().manual_seed(1)
     rows = {}
 
+    def dev_ms(fn, iters=10):
+        return sum(device_times(fn, iters).values())
+
     # correlation, f32, md 4, B=8 at PWCLite's levels of a 384x832 pair;
-    # within 1e-5 max|plain| (f32 sums in another order). The operations
-    # are f32 FMAs on the CUDA cores: the bound uses the f32 peak.
+    # within 1e-5 max|plain| (f32 sums in another order), equal bits over
+    # two launches. The operations are f32 FMAs on the CUDA cores: the
+    # bound uses the f32 peak. A flow step launches the forward twice and
+    # the backward once at each level.
+    step_dev = 0.0
     for c, h, w in ((192, 6, 13), (128, 12, 26), (96, 24, 52),
                     (64, 48, 104), (32, 96, 208)):
         x1 = torch.randn(8, c, h, w, generator=gen).to(dev)
@@ -697,7 +706,11 @@ def phase_kernels_flow(card):
         g = torch.randn(8, 81, h, w, generator=gen).to(dev)
         out = correlate(x1, x2, 4)
         got = correlate_bwd(x1, x2, g, 4)
+        again = (correlate(x1, x2, 4),) + correlate_bwd(x1, x2, g, 4)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((out,) + got, again)),
+              f"correlation C={c} {h}x{w}: two launches differ")
+        del again
         want = (correlation_batched(x1, x2, 4),) + correlation_bwd_plain(
             x1, x2, g, 4)
         errs = []
@@ -711,6 +724,9 @@ def phase_kernels_flow(card):
         plain_ms = cuda_ms(lambda: correlation_batched(x1, x2, 4), 5)
         bms = cuda_ms(lambda: correlate_bwd(x1, x2, g, 4), 20)
         bplain_ms = cuda_ms(lambda: correlation_bwd_plain(x1, x2, g, 4), 3)
+        fdev = dev_ms(lambda: correlate(x1, x2, 4), 20)
+        bdev = dev_ms(lambda: correlate_bwd(x1, x2, g, 4), 20)
+        step_dev += 2 * fdev + bdev
         flops = 2.0 * 81 * c * 8 * h * w
         bd = bound(nbytes(x1, x2, out), flops, FP32_FLOPS)
         bbd = bound(nbytes(x1, x2, g, *got), 2.0 * flops, FP32_FLOPS)
@@ -720,17 +736,21 @@ def phase_kernels_flow(card):
         print(f"phase 3: correlation B=8 C={c} {h}x{w} md=4 f32: max|err| "
               f"out, dx1, dx2 {errs[0]:.4g}, {errs[1]:.4g}, {errs[2]:.4g} "
               f"(max {want[0].abs().max().item():.4g}, "
-              f"{want[1].abs().max().item():.4g}); forward kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms "
-              f"({bd[1]}); backward kernel {bms:.4f} ms, plain "
+              f"{want[1].abs().max().item():.4g}), bit-equal over two "
+              f"launches; forward kernel {ms:.4f} ms (device {fdev:.4f}), "
+              f"plain {plain_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); "
+              f"backward kernel {bms:.4f} ms (device {bdev:.4f}), plain "
               f"{bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms ({bbd[1]}) "
               f"[{card}]", flush=True)
         del x1, x2, g, out, got, want
+    print(f"phase 3: correlation device ms of one flow step (10 forward, 5 "
+          f"backward launches): {step_dev:.4f} [{card}]", flush=True)
 
     # the flat conv3d op at Base3D's layer, [512, 32, 64, 96] -> 32, D=64:
-    # rule 3 (3% of max|plain|) for y, dx and dW; the library yardsticks
-    # cuDNN's conv3d on the 5-D volume and its backward, and the port's
-    # flat Conv3d (cuDNN's stacked taps + tap_combine) beside them
+    # rule 3 (3% of max|plain|) for y, dx (the kernel reading the weight
+    # flipped) and dW, equal bits over two launches; the library
+    # yardsticks cuDNN's conv3d on the 5-D volume and its backward, and
+    # the port's flat Conv3d (cuDNN's stacked taps + tap_combine)
     n, c, f, h, w, depth = 512, 32, 32, 64, 96, 64
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype)[6:]
@@ -738,12 +758,19 @@ def phase_kernels_flow(card):
         wt = (torch.randn(f, c, 3, 3, 3, generator=gen)
               * (2.0 / (27 * f)) ** 0.5).to(dev)
         dy = (torch.randn(n, f, h, w, generator=gen) * 0.1).to(dev, dtype)
-        kt = flip_weight(wt)
-        got = (conv3d_flat_fwd(x, wt, depth), conv3d_flat_fwd(dy, kt, depth),
-               conv3d_flat_dw(x, dy, depth))
+
+        def run():
+            return (conv3d_flat_fwd(x, wt, depth),
+                    conv3d_flat_fwd(dy, wt, depth, flip=True),
+                    conv3d_flat_dw(x, dy, depth))
+        got = run()
+        again = run()
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"conv3d_flat {tag}: two launches differ")
+        del again
         want = (conv3d_flat_plain(x, wt, depth),
-                conv3d_flat_plain(dy, kt, depth),
+                conv3d_flat_plain(dy, flip_weight(wt), depth),
                 conv3d_flat_dw_plain(x, dy, depth))
         errs = []
         for a, b, nm in zip(got, want, ("y", "dx", "dW")):
@@ -756,9 +783,12 @@ def phase_kernels_flow(card):
         flops = 2.0 * n * h * w * f * 27 * c
         ms = cuda_ms(lambda: conv3d_flat_fwd(x, wt, depth), 5)
         plain_ms = cuda_ms(lambda: conv3d_flat_plain(x, wt, depth), 5)
-        dx_ms = cuda_ms(lambda: conv3d_flat_fwd(dy, kt, depth), 5)
+        dx_ms = cuda_ms(lambda: conv3d_flat_fwd(dy, wt, depth, flip=True), 5)
         dw_ms = cuda_ms(lambda: conv3d_flat_dw(x, dy, depth), 5)
         dw_plain_ms = cuda_ms(lambda: conv3d_flat_dw_plain(x, dy, depth), 3)
+        fdev = dev_ms(lambda: conv3d_flat_fwd(x, wt, depth), 5)
+        dxdev = dev_ms(lambda: conv3d_flat_fwd(dy, wt, depth, flip=True), 5)
+        dwdev = dev_ms(lambda: conv3d_flat_dw(x, dy, depth), 5)
         x5 = x.reshape(n // depth, depth, c, h, w).transpose(1, 2)
         x5 = x5.contiguous()
         dy5 = dy.reshape(n // depth, depth, f, h, w).transpose(1, 2)
@@ -766,6 +796,8 @@ def phase_kernels_flow(card):
         w5 = wt.to(dtype)
         lib_ms = cuda_ms(lambda: F.conv3d(x5, w5, padding=1), 5)
         blib_ms = cuda_ms(lambda: _conv_bwd(dy5, x5, w5), 5)
+        lib_dev = dev_ms(lambda: F.conv3d(x5, w5, padding=1), 5)
+        blib_dev = dev_ms(lambda: _conv_bwd(dy5, x5, w5), 5)
         layer = Conv3d(c, f, depth, dtype=dtype if dtype != torch.float32
                        else None, combine=True).to(dev)
         with torch.no_grad():
@@ -781,12 +813,15 @@ def phase_kernels_flow(card):
               f"{tag}: max|err| y, dx, dW {errs[0]:.4g}, {errs[1]:.4g}, "
               f"{errs[2]:.4g} (max {want[0].float().abs().max().item():.4g},"
               f" {want[1].float().abs().max().item():.4g}, "
-              f"{want[2].abs().max().item():.4g}); forward kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, cuDNN conv3d {lib_ms:.4f} ms, "
-              f"flat Conv3d (cuDNN taps + tap_combine) {flat_ms:.4f} ms, "
-              f"bound {bd[0]:.4f} ms ({bd[1]}); dx kernel {dx_ms:.4f} ms; "
-              f"dW kernel {dw_ms:.4f} ms, plain {dw_plain_ms:.4f} ms, cuDNN "
-              f"conv3d backward (dx and dW) {blib_ms:.4f} ms, bound "
+              f"{want[2].abs().max().item():.4g}), bit-equal over two "
+              f"launches; forward kernel {ms:.4f} ms (device {fdev:.4f}), "
+              f"plain {plain_ms:.4f} ms, cuDNN conv3d {lib_ms:.4f} ms "
+              f"(device {lib_dev:.4f}), flat Conv3d (cuDNN taps + "
+              f"tap_combine) {flat_ms:.4f} ms, bound {bd[0]:.4f} ms "
+              f"({bd[1]}); dx kernel {dx_ms:.4f} ms (device {dxdev:.4f}); "
+              f"dW kernel {dw_ms:.4f} ms (device {dwdev:.4f}), plain "
+              f"{dw_plain_ms:.4f} ms, cuDNN conv3d backward (dx and dW) "
+              f"{blib_ms:.4f} ms (device {blib_dev:.4f}), bound "
               f"{dbd[0]:.4f} ms ({dbd[1]}) [{card}]", flush=True)
         del x, dy, got, want, x5, dy5, layer
         torch.cuda.empty_cache()
@@ -1541,6 +1576,11 @@ def phase_flow(card):
         torch.cuda.synchronize()
         split[kernels] = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
         del out, loss
+    # the correlation kernels' device ms in one kernel step (profiler)
+    from conv_bwd_split import device_times
+    per = device_times(lambda: runs[True]._step(pair0), 1)
+    corr_dev = {d: sum(v for k, v in per.items() if f"corr_{d}" in k)
+                for d in ("fwd", "bwd", "reduce")}
     del runs
 
     # one SintelARTrainer step at B=2: the with_bk pass and two student
@@ -1582,7 +1622,11 @@ def phase_flow(card):
           f"{', '.join(f'{x:.3f}' for x in t[True])}, plain "
           f"{', '.join(f'{x:.3f}' for x in t[False])}; split forward, loss, "
           f"backward, Adam ms: "
-          f"kernel {sp[True]}, plain {sp[False]}; peak memory GiB kernel "
+          f"kernel {sp[True]}, plain {sp[False]}; the correlation "
+          f"kernels' device ms in a kernel step: forward "
+          f"{corr_dev['fwd'] + corr_dev['reduce']:.4f} (of it the group "
+          f"sums {corr_dev['reduce']:.4f}), backward {corr_dev['bwd']:.4f} "
+          f"of {sum(per.values()):.3f} device ms; peak memory GiB kernel "
           f"{peak[True]:.3f}, plain {peak[False]:.3f}; AR step B=2: "
           f"launches {ar_got[:2]}, loss {ar_loss.item():.5g}, l_atst "
           f"{ar_terms['l_atst'].item():.5g}, l_ot "

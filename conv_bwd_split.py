@@ -3,7 +3,8 @@
 shapes: each backward split into the data gradient and the weight
 gradient, or (``--forward``) each forward beside cuDNN's conv.
 
-    python3 conv_bwd_split.py [--forward | --segments | --sweep [STEP ...]]
+    python3 conv_bwd_split.py [--forward | --segments | --sweep [STEP ...]
+                               | --conv3d | --correlation [--groups]]
                               [--root CHECKOUT] [--tag NAME]
 
 ``CHECKOUT`` (default: this file's directory) is the tree whose
@@ -31,8 +32,17 @@ included where it is longer than the kernels'). ``--segments`` times Base3D's
 forward at each depth-segment length beside the one the wrapper picks.
 ``--sweep`` times the stage-2 sweep's forward and backward at phase 3's
 shapes on each camera step of ``chip_smoke.SWEEP_STEPS`` (or the steps
-named), with the blocks on each path. Prints one JSON line per shape and,
-last, the card's name and power limit.
+named), with the blocks on each path. ``--conv3d`` times the flat conv3d
+op (``ops/conv3d_kernel.py``) at Base3D's layer (N=512, C=F=32, 64x96,
+D=64) in bf16 and f32: the forward, the data gradient and the weight
+gradient, each call's event ms and device ms, beside cuDNN's ``F.conv3d``
+and its ``convolution_backward`` on the 5-D volume (TF32 off).
+``--correlation`` times the correlation's forward and backward at
+PWCLite's five levels of a 384x832 pair (B=8, md 4), event and device ms,
+and the device ms of one flow step's 10 forward and 5 backward launches;
+with ``--groups`` also each channel group the kernels take, beside the
+wrappers' picks (``fwd_channels``, ``bwd_channels``).
+Prints one JSON line per shape and, last, the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -273,6 +283,109 @@ def sweep_rows(dev, gen, tag: str, steps: list) -> None:
             torch.cuda.empty_cache()
 
 
+def _timed(fn, iters: int) -> dict:
+    """{"ms", "device_ms", "kernels"} per call of ``fn``."""
+    per = device_times(fn, iters)
+    return {"ms": cuda_ms(fn, iters), "device_ms": sum(per.values()),
+            "kernels": {k[:48]: round(v, 4) for k, v in per.items()}}
+
+
+def conv3d_rows(dev, gen, tag: str) -> None:
+    """The flat conv3d op at Base3D's layer (chip_smoke.py phase 3's
+    shape), bf16 and f32, beside cuDNN: one JSON line per dtype. A tree
+    whose forward takes no ``flip`` times the data gradient over the
+    flipped copy its autograd made."""
+    import inspect
+    import torch
+    import torch.nn.functional as F
+    from depthestimation_tpu_torch.ops import conv3d_kernel as c3
+    n, c, f, h, w, depth = 512, 32, 32, 64, 96, 64
+    flip = "flip" in inspect.signature(c3.conv3d_flat_fwd).parameters
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(n, c, h, w, generator=gen).to(dev, dtype)
+        wt = (torch.randn(f, c, 3, 3, 3, generator=gen)
+              * (2.0 / (27 * f)) ** 0.5).to(dev)
+        dy = (torch.randn(n, f, h, w, generator=gen) * 0.1).to(dev, dtype)
+        x5 = x.reshape(n // depth, depth, c, h, w).transpose(1, 2)
+        x5 = x5.contiguous()
+        dy5 = dy.reshape(n // depth, depth, f, h, w).transpose(1, 2)
+        dy5 = dy5.contiguous()
+        w5 = wt.to(dtype)
+        if flip:
+            def dx():
+                return c3.conv3d_flat_fwd(dy, wt, depth, flip=True)
+        else:
+            def dx():
+                return c3.conv3d_flat_fwd(dy, c3.flip_weight(wt), depth)
+        row = {"tag": tag, "shape": f"conv3d N={n} C={c} F={f} 64x96 "
+                                    f"D={depth} {str(dtype)[6:]}"}
+        for key, fn in (("fwd", lambda: c3.conv3d_flat_fwd(x, wt, depth)),
+                        ("dx", dx),
+                        ("dw", lambda: c3.conv3d_flat_dw(x, dy, depth)),
+                        ("cudnn_fwd", lambda: F.conv3d(x5, w5, padding=1)),
+                        ("cudnn_bwd", lambda: _conv_bwd(dy5, x5, w5))):
+            for k, v in _timed(fn, 5).items():
+                row[f"{key}_{k}"] = v
+        print(json.dumps(row), flush=True)
+        del x, dy, x5, dy5
+        torch.cuda.empty_cache()
+
+
+LEVELS = ((192, 6, 13), (128, 12, 26), (96, 24, 52), (64, 48, 104),
+          (32, 96, 208))
+
+
+def correlation_groups(x1, x2, g, dev) -> dict:
+    """Device ms of the correlation kernels at each channel group the C
+    entry points take (the forward: multiples of 8 up to C; the backward:
+    8 or 32), beside the wrappers' picks."""
+    import torch
+    from depthestimation_tpu_torch.ops import correlation_kernel as crk
+    from depthestimation_tpu_torch.ops import cuda_lib
+    b, c, h, w = x1.shape
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(dev)
+    out = torch.empty((b, 81, h, w), device=dev)
+    part = torch.empty((-(-c // 8), b, 81, h, w), device=dev)
+    dx1, dx2 = torch.empty_like(x1), torch.empty_like(x2)
+    fwd = {cg: sum(device_times(lambda cg=cg: lib.call(
+        "correlation_fwd", x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
+        part.data_ptr(), b, c, h, w, 4, cg, stream), FWD_ITERS).values())
+        for cg in range(8, -(-c // 8) * 8 + 1, 8)}
+    bwd = {cg: sum(device_times(lambda cg=cg: lib.call(
+        "correlation_bwd", x1.data_ptr(), x2.data_ptr(), g.data_ptr(),
+        dx1.data_ptr(), dx2.data_ptr(), b, c, h, w, 4, cg, stream),
+        FWD_ITERS).values()) for cg in crk.BWD_CHANNELS}
+    n_sm = cuda_lib.sm_count(dev)
+    return {"fwd_group_device_ms": fwd, "bwd_group_device_ms": bwd,
+            "picked": [crk.fwd_channels(b, c, h, w, n_sm),
+                       crk.bwd_channels(b, c, h, w, n_sm)]}
+
+
+def correlation_rows(dev, gen, tag: str, groups: bool = False) -> None:
+    """The correlation pair at PWCLite's five levels (B=8, md 4): one JSON
+    line per level, then the flow step's device ms (2 forward and 1
+    backward launches a level); with ``groups`` each channel group's
+    device ms beside the wrappers' picks."""
+    import torch
+    from depthestimation_tpu_torch.ops import correlation_kernel as crk
+    step = 0.0
+    for c, h, w in LEVELS:
+        x1 = torch.randn(8, c, h, w, generator=gen).to(dev)
+        x2 = torch.randn(8, c, h, w, generator=gen).to(dev)
+        g = torch.randn(8, 81, h, w, generator=gen).to(dev)
+        row = {"tag": tag, "level": f"C={c} {h}x{w}"}
+        if groups:
+            row.update(correlation_groups(x1, x2, g, dev))
+        for key, fn in (("fwd", lambda: crk.correlate(x1, x2, 4)),
+                        ("bwd", lambda: crk.correlate_bwd(x1, x2, g, 4))):
+            for k, v in _timed(fn, FWD_ITERS).items():
+                row[f"{key}_{k}"] = v
+        step += 2 * row["fwd_device_ms"] + row["bwd_device_ms"]
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"tag": tag, "flow_step_correlation_device_ms": step}),
+          flush=True)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -294,6 +407,12 @@ def main() -> int:
     ap.add_argument("--sweep", nargs="*", metavar="STEP",
                     help="time the stage-2 sweep's two directions instead, "
                          "on these camera steps (default: all)")
+    ap.add_argument("--conv3d", action="store_true",
+                    help="time the flat conv3d op instead")
+    ap.add_argument("--correlation", action="store_true",
+                    help="time the correlation pair instead")
+    ap.add_argument("--groups", action="store_true",
+                    help="with --correlation: each channel group too")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -306,6 +425,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     if args.segments:
         segment_rows_table(dev, gen)
+        print(card_line())
+        return 0
+    if args.conv3d or args.correlation:
+        if args.conv3d:
+            conv3d_rows(dev, gen, args.tag)
+        else:
+            correlation_rows(dev, gen, args.tag, args.groups)
         print(card_line())
         return 0
     if args.sweep is not None:

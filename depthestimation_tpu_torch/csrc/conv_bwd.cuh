@@ -327,41 +327,49 @@ constexpr int kDwHaloW = kDwTW + 2;
 constexpr int kDwHalo = (kDwTH + 2) * kDwHaloW;
 
 struct DwArgs {
-  const bf16* ge;        // [rows, F, h*w], the folded cotangent
-  const bf16* u;         // [rows, h*w, Cp], the normalized input
+  const bf16* ge;        // [rows, gs, h*w], the folded cotangent: channels
+                         // 0 .. F-1 from here
+  const bf16* u;         // [rows, h*w, ustr], the normalized input:
+                         // channels 0 .. Cp-1 from here
   int rows, C, Cp, F, taps, depth, h, w;
+  int gs, ustr;          // ge's channels a row, u's a pixel (F, Cp but for
+                         // a group of the conv3d op's weight gradient)
 };
 
 constexpr int kDwMaxWgs = 3;   // 384 threads: up to 170 registers each
 constexpr int kDwStages = 3;   // units in shared memory: one computed, two
                                // in flight
 
-// u[n][p][c] = bf16(act(x[n][c][p] a[c] + b[c])) for c < C, 0 up to Cp:
-// the weight gradient's normalized input, channels fastest. A block
-// transposes 64 pixels of one row through shared memory, reading 8 pixels
-// of a channel and writing 8 channels of a pixel at a time where aligned.
+// u[n][p][c] = bf16(act(x[n][c][p] a[c] + b[c])) for c < C, 0 up to Cp
+// (x itself where a is null): the weight gradient's normalized input,
+// channels fastest. A block transposes 64 pixels of one row and 80
+// channels from 80 * blockIdx.z through shared memory, reading 8 pixels of
+// a channel and writing 8 channels of a pixel at a time where aligned.
+constexpr int kDwInC = 80;
 static __global__ void __launch_bounds__(256)
 conv_dw_input_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
                      const float* __restrict__ b, bf16* __restrict__ u,
                      int C, int Cp, int HW, int act) {
-  __shared__ __align__(16) bf16 t[64 * (80 + 2)];
-  const int tp = Cp + 2;                 // odd word stride: no conflicts
+  __shared__ __align__(16) bf16 t[64 * (kDwInC + 2)];
+  const int c0 = blockIdx.z * kDwInC, cw = min(kDwInC, Cp - c0);
+  const int tp = cw + 2;                 // odd word stride: no conflicts
   const int n = blockIdx.y, p0 = blockIdx.x * 64;
   const bf16* xn = x + (size_t)n * C * HW;
-  for (int i = threadIdx.x; i < Cp * 8; i += blockDim.x) {
-    const int c = i / 8, q0 = (i % 8) * 8;
+  for (int i = threadIdx.x; i < cw * 8; i += blockDim.x) {
+    const int cl = i / 8, c = c0 + cl, q0 = (i % 8) * 8;
     uint4 r = make_uint4(0, 0, 0, 0);
     unsigned ok = 0;
     if (c < C) r = load8(xn, (size_t)c * HW, p0 + q0, HW, ok);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      t[(q0 + e) * tp + c] = __float2bfloat16(
-          (ok >> e) & 1u ? act_fwd(affine(bf_at(r, e), a[c], b[c]), act)
-                         : 0.0f);
+      t[(q0 + e) * tp + cl] = __float2bfloat16(
+          !((ok >> e) & 1u) ? 0.0f
+          : a ? act_fwd(affine(bf_at(r, e), a[c], b[c]), act)
+              : bf_at(r, e));
   }
   __syncthreads();
-  const int c8 = Cp / 8;
-  bf16* un = u + ((size_t)n * HW + p0) * Cp;
+  const int c8 = cw / 8;
+  bf16* un = u + ((size_t)n * HW + p0) * Cp + c0;
   for (int i = threadIdx.x; i < 64 * c8; i += blockDim.x) {
     const int q = i / c8, c = (i % c8) * 8;
     if (p0 + q >= HW) continue;
@@ -415,7 +423,7 @@ conv_dw_kernel(DwArgs p, float* __restrict__ partials, int wgs) {
             gb + kmajor_off((rest >> 1) * 16 + 8 * (rest & 1), col, NP);
         const bool live = py < p.h && (t == 1 || (t == 0 ? up : dn));
         const bf16* src =
-            p.ge + (live ? ((size_t)(n + 1 - t) * p.F + f) * HW +
+            p.ge + (live ? ((size_t)(n + 1 - t) * p.gs + f) * HW +
                                (size_t)py * p.w + px0
                          : 0);
         if (!live || (px0 + 8 <= p.w && aligned16(src))) {
@@ -426,14 +434,14 @@ conv_dw_kernel(DwArgs p, float* __restrict__ partials, int wgs) {
         }
       }
       bf16* ub = sU0 + buf * ustride;
-      const bf16* un = p.u + (size_t)n * HW * p.Cp;
+      const bf16* un = p.u + (size_t)n * HW * p.ustr;
       for (int j = threadIdx.x; j < kDwHalo * (p.Cp / 8); j += nthr) {
         const int hp = j % kDwHalo, ch = (j / kDwHalo) * 8;
         const int yy = hp / kDwHaloW, xx = hp - yy * kDwHaloW;
         const int py = ty0 + yy - 1, px = tx0 + xx - 1;
         const bool in = py >= 0 && py < p.h && px >= 0 && px < p.w;
         cp_async16(ub + hp * us + ch,
-                   un + (in ? ((size_t)py * p.w + px) * p.Cp + ch : 0), in);
+                   un + (in ? ((size_t)py * p.w + px) * p.ustr + ch : 0), in);
       }
     }
     cp_async_commit();
@@ -502,32 +510,42 @@ conv_dw_kernel(DwArgs p, float* __restrict__ partials, int wgs) {
     }
 }
 
-// dw [cols, C, 3, 3] = sum over blocks of partials[block][s*Cp + c][col],
-// the blocks in a fixed order; a thread per GEMM element, so neighbouring
-// threads read neighbours
+// Where a group's GEMM lands in the weight [taps * Ft, Ct, 3, 3]: its
+// columns t*F + f are rows t*Ft + f0 + f, its channels c are c0 + c (the
+// whole weight: Ft = F, Ct = C, f0 = c0 = 0)
+struct DwOut {
+  int Ft, Ct, f0, c0;
+};
+
+// dw [taps * Ft, Ct, 3, 3] at the group's rows and channels = sum over
+// blocks of partials[block][s*Cp + c][t*F + f], the blocks in a fixed
+// order; a thread per GEMM element, so neighbouring threads read
+// neighbours
 static __global__ void __launch_bounds__(256)
 conv_dw_reduce_kernel(const float* __restrict__ partials,
                       float* __restrict__ dw, int nblk, int C, int Cp,
-                      int cols, int NP) {
+                      int F, int taps, int NP, DwOut o) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int elems = 9 * Cp * NP;
   if (e >= elems) return;
   const int m = e / NP, col = e - m * NP;
   const int s = m / Cp, c = m - s * Cp;
-  if (col >= cols || c >= C) return;
+  if (col >= taps * F || c >= C) return;
+  const int t = col / F, f = col - t * F;
   float v = 0.0f;
   for (int i = 0; i < nblk; ++i) v += partials[(size_t)i * elems + e];
-  dw[((size_t)col * C + c) * 9 + s] = v;
+  dw[((size_t)(t * o.Ft + o.f0 + f) * o.Ct + o.c0 + c) * 9 + s] = v;
 }
 
 // The weight gradient in two launches on ``stream`` (after the two passes
 // above): conv_dw_kernel on (dw_blocks, nsplit) blocks of 128 * wgs threads
 // into dw_partials [dw_blocks, 9 Cp, NP], then conv_dw_reduce_kernel into
-// dw.
+// dw (the whole weight, or the group ``o`` of it).
 template <int NP>
 cudaError_t launch_conv_dw(const DwArgs& p, float* dw_partials, float* dw,
                            int dw_blocks, int nsplit, int wgs,
-                           cudaStream_t s) {
+                           cudaStream_t s, DwOut o = {0, 0, 0, 0}) {
+  if (o.Ft == 0) o = {p.F, p.C, 0, 0};
   const size_t smem = sizeof(bf16) * kDwStages *
                       ((size_t)kDwPix * NP + (size_t)kDwHalo * (p.Cp + 8));
   cudaError_t err = cudaFuncSetAttribute(
@@ -540,17 +558,19 @@ cudaError_t launch_conv_dw(const DwArgs& p, float* dw_partials, float* dw,
   if (err != cudaSuccess) return err;
   const int elems = 9 * p.Cp * NP;
   conv_dw_reduce_kernel<<<(elems + 255) / 256, 256, 0, s>>>(
-      dw_partials, dw, dw_blocks, p.C, p.Cp, p.taps * p.F, NP);
+      dw_partials, dw, dw_blocks, p.C, p.Cp, p.F, p.taps, NP, o);
   return cudaGetLastError();
 }
 
-// the normalized input for the weight gradient, one launch on ``s``
+// the normalized input for the weight gradient (x itself where a is
+// null), one launch on ``s``
 inline cudaError_t launch_conv_dw_input(const bf16* x, const float* a,
                                         const float* b, bf16* u, int rows,
                                         int C, int Cp, int HW, int act,
                                         cudaStream_t s) {
-  conv_dw_input_kernel<<<dim3((HW + 63) / 64, rows), 256, 0, s>>>(
-      x, a, b, u, C, Cp, HW, act);
+  conv_dw_input_kernel<<<dim3((HW + 63) / 64, rows,
+                              (Cp + kDwInC - 1) / kDwInC),
+                         256, 0, s>>>(x, a, b, u, C, Cp, HW, act);
   return cudaGetLastError();
 }
 

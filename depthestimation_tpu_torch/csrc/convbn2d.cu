@@ -590,7 +590,7 @@ extern "C" int convbn2d_bwd(const void* x, const void* w, const void* a,
                                  act, s);
   if (err != cudaSuccess) return err;
   const de::DwArgs p{(const bf16*)ge, (const bf16*)u, N, C, Cp, F, 1, 1, h,
-                     wd};
+                     wd, F, Cp};
 #define DE_DW(np)                                                            \
   de::launch_conv_dw<np>(p, (float*)dw_partials, (float*)dw, dw_blocks,      \
                          nsplit, wgs, s)

@@ -21,7 +21,8 @@
 // overhead does: staging and normalizing the conv's input operand and
 // feeding the tensor cores.
 //
-// What the design does about it (convcomb_kernel): a block owns a
+// What the design does about it (conv_ring.cuh's ring_kernel, shared
+// with the flat conv3d op): a block owns a
 // 4x16-pixel image tile of one item's depth segment of up to ``seg``
 // output rows and streams the input rows the segment needs (one halo row
 // each side) in depth order, the TPU kernel's ring on a short segment. The
@@ -73,6 +74,7 @@
 
 #include "common.cuh"
 #include "conv_bwd.cuh"
+#include "conv_ring.cuh"
 #include "reduce.cuh"
 #include "wgmma.cuh"
 
@@ -87,260 +89,14 @@ constexpr int kTH = 4, kTW = 16;           // output tile: 4 rows x 16 cols
 constexpr int kHaloW = kTW + 2;
 constexpr int kHalo = (kTH + 2) * kHaloW;  // 108 halo pixels
 constexpr int kMaxF = 32;                  // tap stride at most 32
-constexpr int kSYS = kTH * kTW + 8;        // y tile row stride: +16 B
-
-// The forward layer (x -> y, stats). ``NG`` = Cp / 16, the 16-channel
-// groups of K per shift; ``S`` = the tap stride (8, 16 or 32 >= F): the
-// three taps' products are one wgmma with N = 3 S, column t*S + f, so that
-// every thread holds all three taps of its channels (the ring needs no
-// shuffle) and F = 1 takes N = 24.
-//
-// A block (one warpgroup) owns the 4x16 tile at blockIdx.x of one item's
-// depth segment and walks its input rows m = d0 - 1 .. d1 in order. Per
-// row: the raw x rows of m + 2 are copied (cp.async) into one of two raw
-// buffers while row m computes; the raw rows of m are normalized
-// (halo_from_raw, u = bf16(act(x a + b))) into the channels-fastest halo;
-// per 3x3 shift s the warps load their A fragments (warp w: tile row w, 16
-// pixels) from the halo, alternating two register sets, and issue the
-// product against B = [9 Cp, 3 S] (B[s*Cp + c][t*S + f] = wm[t*F + f, c,
-// s], built from wm's own [3F, C, 3, 3] once per block); then the ring on
-// the f32 accumulators in registers, in the TPU kernel's rounding order:
-//   y(m-1)  = bf16(part(m-1) + bf16(t2(m)))
-//   part(m) = bf16(bf16(t1(m)) + bf16(t0(m-1)))   [t0 term iff m > 0]
-// The epilogue writes y(m-1) through shared memory ([F, 64 + 8] bf16) and
-// stores it as 16-byte runs of one channel row; the thread that stores a
-// run adds its values to its channel's (sum y, sum y^2), and the eight
-// threads of a channel add theirs in a fixed order into ``partials`` [F,
-// nblk, 2].
-template <int NG, int S>
-__global__ void __launch_bounds__(kThreads)
-convcomb_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wm,
-                const float* __restrict__ a, const float* __restrict__ b,
-                bf16* __restrict__ y, float* __restrict__ partials, int C,
-                int F, int depth, int h, int w, int relu, int seg, int nseg,
-                int tiles_x) {
-  constexpr int Cp = NG * 16, NP = 3 * S, K = 9 * Cp, us = Cp + 8;
-  constexpr int kRows = kTH + 2;
-  constexpr int kRaw = de::halo_raw_elems<kRows>(Cp);
-  constexpr int kSlots = (8 * S + kThreads - 1) / kThreads;
-  const int HW = h * w;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int item = blockIdx.y / nseg;
-  const int d0 = (blockIdx.y % nseg) * seg;
-  const int d1 = min(d0 + seg, depth);
-  const int nblk = gridDim.x * gridDim.y;
-  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sB = reinterpret_cast<bf16*>(smem);          // [K, NP], K-major
-  bf16* sU = sB + K * NP;                             // [kHalo, us]
-  bf16* sY = sU + kHalo * us;                         // [S, kSYS]
-  bf16* sRaw = sY + S * kSYS;                         // [2][kRaw]
-  float* sAB = reinterpret_cast<float*>(sRaw + 2 * kRaw);   // a, b [2][Cp]
-
-  const int m_begin = d0 > 0 ? d0 - 1 : 0;
-  const int m_end = d1 < depth ? d1 : depth - 1;
-  const bf16* xi = x + (size_t)item * depth * C * HW;
-  const bool fast = w % 8 == 0 && de::aligned16(x);
-  const bool fast_y = w % 8 == 0 && de::aligned16(y);
-  // input row m's raw copies into buffer ``buf``, one cp.async group
-  // (committed even when empty, so that the group count is the row count)
-  auto stage = [&](int m, int buf) {
-    if (m <= m_end)
-      de::stage_halo_raw<kRows>(sRaw + buf * kRaw, C, h, w, HW, ty0, tx0,
-                                xi + (size_t)m * C * HW, fast);
-    de::cp_async_commit();
-  };
-  stage(m_begin, 0);
-  stage(m_begin + 1, 1);
-
-  const uint4 z4 = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < K * NP / 8; i += kThreads)
-    reinterpret_cast<uint4*>(sB)[i] = z4;
-  for (int i = threadIdx.x; i < 2 * Cp; i += kThreads) {
-    const int c = i < Cp ? i : i - Cp;
-    sAB[i] = c < C ? (i < Cp ? a[c] : b[c]) : 0.0f;
-  }
-  __syncthreads();
-  // wm [3F, C, 3, 3]: row t*F + f, column c, shift s -> B[s*Cp + c][t*S + f]
-  const float inv_c9 = 1.0f / (C * 9), inv_f = 1.0f / F;
-  de::for_each_bf16(wm, 3 * F * C * 9, [&](int i, unsigned short v) {
-    const int tf = de::div_small(i, C * 9, inv_c9), rem = i - tf * C * 9;
-    const int c = rem / 9, s = rem - c * 9;
-    const int t = de::div_small(tf, F, inv_f), f = tf - t * F;
-    sB[de::kmajor_off(s * Cp + c, t * S + f, NP)] = __ushort_as_bfloat16(v);
-  });
-  de::fence_proxy_async();
-  const int act = relu ? de::kActRelu : de::kActNone;
-  auto norm = [&](int c, float v) {
-    return de::act_fwd(de::affine(v, sAB[c], sAB[Cp + c]), act);
-  };
-
-  // ldmatrix rows: pixel p of the warp's tile row, channel half ch
-  const int p = (lane & 7) + ((lane >> 3) & 1) * 8, ch = (lane >> 4) * 8;
-  const unsigned ab = de::smem_addr(sU + (warp * kHaloW + p) * us + ch);
-  // accumulator element e of n8 group j: pixel g (+8 for e >= 2) of the
-  // warp's tile row, column 8j + q2 (+1 for odd e)
-  const int g = lane >> 2, q2 = (lane & 3) * 2;
-
-  float part[S / 2], t0p[S / 2], st[kSlots][2];
-#pragma unroll
-  for (int e = 0; e < S / 2; ++e) part[e] = t0p[e] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) st[k][0] = st[k][1] = 0.0f;
-
-  // row r's y (this thread's S/2 values) -> sY -> global as 16-byte runs:
-  // job j = 8f + 2 * tile row + half, eight pixels of channel f
-  auto emit = [&](int r, const float (&v)[S / 2]) {
-#pragma unroll
-    for (int jf = 0; jf < S / 8; ++jf)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = 8 * jf + q2 + (e & 1);
-        if (f < F)
-          sY[f * kSYS + warp * 16 + g + 8 * (e >> 1)] =
-              __float2bfloat16(v[4 * jf + e]);
-      }
-    __syncthreads();
-    const size_t row = (size_t)item * depth + r;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int j = threadIdx.x + k * kThreads;
-      const int f = j >> 3, rr = (j >> 1) & 3, half = j & 1;
-      const int py = ty0 + rr, px0 = tx0 + 8 * half;
-      if (f >= F || py >= h || px0 >= w) continue;
-      const uint4 val =
-          *reinterpret_cast<const uint4*>(sY + f * kSYS + rr * 16 + half * 8);
-      bf16* dst = y + (row * F + f) * HW + (size_t)py * w + px0;
-      if (fast_y) {
-        *reinterpret_cast<uint4*>(dst) = val;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (px0 + i < w)
-            dst[i] = __ushort_as_bfloat16(de::bf_bits(val, i));
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (px0 + i < w) {
-          const float q = de::bf_at(val, i);
-          st[k][0] += q;
-          st[k][1] += q * q;
-        }
-    }
-  };
-
-  int buf = 0;
-  for (int m = m_begin; m <= m_end; ++m) {
-    de::cp_async_wait<1>();          // this thread's copies of row m landed
-    __syncthreads();                 // everyone's; the last row is done
-                                     // with sU and sY
-    de::halo_from_raw<kRows>(sU, us, Cp, C, sRaw + buf * kRaw, h, w, ty0,
-                             tx0, norm);
-    __syncthreads();                 // the halo is ready; the raw buffer
-                                     // is free
-    stage(m + 2, buf);
-    buf ^= 1;
-
-    float acc[NP / 2];
-#pragma unroll
-    for (int e = 0; e < NP / 2; ++e) acc[e] = 0.0f;
-    unsigned af[2][NG][4];           // [register set][group]
-#pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      const int set = s & 1;
-      const unsigned off =
-          ab + (unsigned)(((s / 3) * kHaloW + s % 3) * us * sizeof(bf16));
-#pragma unroll
-      for (int cg = 0; cg < NG; ++cg)
-        de::ldmatrix_x4_addr(af[set][cg], off + cg * 32);
-      de::wg_fence();
-#pragma unroll
-      for (int cg = 0; cg < NG; ++cg)
-        de::Wgmma<NP>::mma(acc, af[set][cg],
-                           de::kmajor_desc(sB, s * NG + cg, NP));
-      de::wg_commit();
-      de::wg_wait<1>();              // the other register set is free
-    }
-    de::wg_wait<0>();
-
-    const bool out = m - 1 >= d0 && m - 1 < d1;
-    const bool in = m >= d0 && m < d1;
-    auto rnd = [](float v) { return de::round_bf16(v); };
-    float yv[S / 2];
-#pragma unroll
-    for (int jf = 0; jf < S / 8; ++jf)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * jf + e;
-        const float t0 = acc[4 * jf + e], t1 = acc[4 * (S / 8 + jf) + e];
-        const float t2 = acc[4 * (2 * (S / 8) + jf) + e];
-        yv[i] = rnd(part[i] + rnd(t2));
-        if (in) {
-          const float t1r = rnd(t1);
-          part[i] = m > 0 ? rnd(t1r + t0p[i]) : t1r;
-        }
-        t0p[i] = rnd(t0);
-      }
-    if (out) emit(m - 1, yv);
-  }
-  if (d1 == depth) {                 // the top row: no upper tap
-    __syncthreads();                 // the last row's stores read sY
-    emit(depth - 1, part);
-  }
-
-  // channel f's eight jobs are eight neighbouring lanes: add them in a
-  // fixed order, then the lane of job 8f writes the block's sums
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    float s0 = st[k][0], s1 = st[k][1];
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    const int j = threadIdx.x + k * kThreads, f = j >> 3;
-    if ((j & 7) == 0 && f < F) {
-      partials[((size_t)f * nblk + bid) * 2] = s0;
-      partials[((size_t)f * nblk + bid) * 2 + 1] = s1;
-    }
-  }
-}
-
-// the forward's dynamic shared memory at (NG, S)
-template <int NG, int S>
-constexpr size_t fwd_smem() {
-  return sizeof(bf16) * ((size_t)9 * NG * 16 * 3 * S +
-                         (size_t)kHalo * (NG * 16 + 8) + (size_t)S * kSYS +
-                         2 * (size_t)de::halo_raw_elems<kTH + 2>(NG * 16)) +
-         sizeof(float) * 2 * NG * 16;
-}
-
-// fn(NG, S) as std::integral_constant values for the forward at (C, F):
-// NG = Cp / 16, S = the tap stride
-template <class Fn>
-cudaError_t with_fwd_shape(int C, int F, Fn fn) {
-  using I1 = std::integral_constant<int, 1>;
-  using I2 = std::integral_constant<int, 2>;
-  using S8 = std::integral_constant<int, 8>;
-  using S16 = std::integral_constant<int, 16>;
-  using S32 = std::integral_constant<int, 32>;
-  if (C <= 16)
-    return F <= 8 ? fn(I1{}, S8{}) : F <= 16 ? fn(I1{}, S16{})
-                                              : fn(I1{}, S32{});
-  return F <= 8 ? fn(I2{}, S8{}) : F <= 16 ? fn(I2{}, S16{})
-                                            : fn(I2{}, S32{});
-}
 
 template <int NG, int S>
 cudaError_t launch_fwd(const bf16* x, const bf16* wm, const float* a,
                        const float* b, bf16* y, float* stats,
                        float* partials, int N, int C, int F, int depth,
                        int h, int w, int relu, int seg, cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<NG, S>();
-  auto kernel = convcomb_kernel<NG, S>;
+  constexpr size_t smem = de::ring::smem_bytes<NG, S>(1, true);
+  auto kernel = de::ring::ring_kernel<NG, S, false>;
   static int slots[16][2];
   int per_sm = 0, n_sm = 0;
   cudaError_t err =
@@ -350,8 +106,9 @@ cudaError_t launch_fwd(const bf16* x, const bf16* wm, const float* a,
   const int tiles = ((h + kTH - 1) / kTH) * tiles_x;
   const int nseg = (depth + seg - 1) / seg;
   dim3 grid(tiles, (N / depth) * nseg);
-  kernel<<<grid, kThreads, smem, s>>>(x, wm, a, b, y, partials, C, F, depth,
-                                      h, w, relu, seg, nseg, tiles_x);
+  const de::ring::Args p{x, wm, a, b, y, partials, C, F, depth, h, w, relu,
+                         seg, nseg, tiles_x, 0, 0, 0, 1};
+  kernel<<<grid, kThreads, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   stats_reduce_kernel<<<F, 256, 0, s>>>(partials, stats, grid.x * grid.y);
@@ -582,7 +339,7 @@ extern "C" int convcomb_fwd(const void* x, const void* wm, const void* a,
   if (C < 1 || F < 1 || C > kMaxF || F > kMaxF || N < 1 || depth < 1 ||
       N % depth || h < 1 || w < 1 || seg < 1)
     return cudaErrorInvalidValue;
-  return with_fwd_shape(C, F, [&](auto ng, auto st) {
+  return de::ring::with_shape(C, F, [&](auto ng, auto st) {
     return launch_fwd<decltype(ng)::value, decltype(st)::value>(
         (const bf16*)x, (const bf16*)wm, (const float*)a, (const float*)b,
         (bf16*)y, (float*)stats, (float*)partials, N, C, F, depth, h, w, relu,
@@ -594,11 +351,12 @@ extern "C" int convcomb_fwd(const void* x, const void* wm, const void* a,
 // picks the segment length from it)
 extern "C" int convcomb_fwd_occupancy(int C, int F, void* per_sm) {
   if (C < 1 || F < 1 || C > kMaxF || F > kMaxF) return cudaErrorInvalidValue;
-  return with_fwd_shape(C, F, [&](auto ng, auto st) {
+  return de::ring::with_shape(C, F, [&](auto ng, auto st) {
     constexpr int NG = decltype(ng)::value, S = decltype(st)::value;
     int slots[16][2] = {}, n_sm = 0;
-    return de::launch_shape(convcomb_kernel<NG, S>, kThreads,
-                            fwd_smem<NG, S>(), slots, (int*)per_sm, &n_sm);
+    return de::launch_shape(de::ring::ring_kernel<NG, S, false>, kThreads,
+                            de::ring::smem_bytes<NG, S>(1, true), slots,
+                            (int*)per_sm, &n_sm);
   });
 }
 
@@ -649,7 +407,8 @@ extern "C" int convcomb_bwd(const void* x, const void* wm, const void* a,
                                  (const float*)b, (bf16*)u, N, C, Cp, h * w,
                                  relu ? de::kActRelu : de::kActNone, s);
   if (err != cudaSuccess) return err;
-  const de::DwArgs p{ge_, (const bf16*)u, N, C, Cp, F, 3, depth, h, w};
+  const de::DwArgs p{ge_, (const bf16*)u, N, C, Cp, F, 3, depth, h, w,
+                     F, Cp};
 #define DE_DW(np)                                                            \
   de::launch_conv_dw<np>(p, (float*)dw_partials, (float*)dw, dw_blocks,      \
                          nsplit, wgs, s)

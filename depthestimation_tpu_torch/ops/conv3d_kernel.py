@@ -15,10 +15,15 @@ x's dtype, and the three taps are added in f32 in the order ``(t1 + t0) +
 t2`` and rounded once (``conv3d_pallas.py:92-104``). The weight is cast to
 x's dtype. ``conv3d_flat`` is one autograd Function on both devices: for a
 CUDA tensor its forward launches ``csrc/conv3d_flat.cu``'s forward kernel,
-its backward the same kernel over dy with the weight flipped in all three
-axes and its I/O swapped (dx, ``conv3d_pallas.py:227-239``) and the dw
-kernel; for a CPU tensor they run the plain versions. It saves x and the
-weight.
+its backward the same kernel over dy reading the weight flipped in all
+three axes and I/O-swapped by index (dx, ``conv3d_pallas.py:227-239``) and
+the dw kernels; for a CPU tensor they run the plain versions. It saves x
+and the weight. The CUDA branch hands the kernels the weight as it is (f32
+or bf16, contiguous): no packed, cast or flipped copy, and no PyTorch
+kernel of its own (``test_torch_flow_gemm.py`` checks it on ``meta``
+tensors). bf16 runs on the tensor cores (``conv_ring.cuh``'s ring kernel,
+``conv_bwd.cuh``'s weight-gradient GEMM), f32 on the CUDA cores (no TF32,
+the op's f32 contract).
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ import torch.nn.functional as F
 
 from depthestimation_tpu_torch.ops import cuda_lib
 from depthestimation_tpu_torch.ops.combine_kernel import tap_combine_plain
+from depthestimation_tpu_torch.ops.conv_gemm import ceil_div, round16
 from depthestimation_tpu_torch.ops.convcomb_kernel import pack_wm
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_DW_TILE = (96, 288)    # csrc/conv3d_flat.cu kBM, kBN
-_DW_UNIT = (4, 32)      # csrc/conv3d_flat.cu kUH, kUW
+#: csrc/conv3d_flat.cu: the bf16 weight gradient's groups of output and
+#: input channels, and the f32 one's block tile (output, input channels)
+DW_GROUPS = (32, 64)
+DW32_TILE = (32, 32)
 
 
 def flip_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -92,33 +100,51 @@ def _check_weight(name: str, x: torch.Tensor, weight: torch.Tensor):
                          f"x {tuple(x.shape)}")
 
 
-def conv3d_flat_fwd(x: torch.Tensor, weight: torch.Tensor,
-                    depth: int) -> torch.Tensor:
+def conv3d_flat_fwd(x: torch.Tensor, weight: torch.Tensor, depth: int,
+                    flip: bool = False) -> torch.Tensor:
     """The forward kernel on a CUDA tensor: the contract of
-    ``conv3d_flat_plain`` (x contiguous f32 or bf16)."""
+    ``conv3d_flat_plain`` (x contiguous f32 or bf16). With ``flip`` the
+    data gradient: x is dy [N, F, H, W], ``weight`` the forward's [F, C, 3,
+    3, 3], read flipped and I/O-swapped by the kernel (``conv3d_flat_plain(
+    dy, flip_weight(weight))``); returns [N, C, H, W]."""
     _check("conv3d_flat", x, depth)
-    _check_weight("conv3d_flat", x, weight)
+    if flip:
+        _check_weight("conv3d_flat dx", x, weight.transpose(0, 1))
+    else:
+        _check_weight("conv3d_flat", x, weight)
     n, c, h, w = x.shape
-    f = weight.shape[0]
-    # kernel weight layout [3, C, 9, F]: tap, input channel, kh*3 + kw
-    wk = weight.to(x.dtype).permute(2, 1, 3, 4, 0).reshape(3, c, 9, f)
-    wk = wk.contiguous()
+    f = weight.shape[1] if flip else weight.shape[0]
+    if weight.dtype not in _DTYPES or x.dtype == torch.float32:
+        weight = weight.to(x.dtype)  # the f32 kernel reads an f32 weight
+    weight = weight.contiguous()     # a copy only for a strided view
     y = torch.empty((n, f, h, w), dtype=x.dtype, device=x.device)
     cuda_lib.library().call(
-        "conv3d_flat_fwd", x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, c,
-        f, depth, h, w, int(x.dtype == torch.bfloat16),
+        "conv3d_flat_fwd", x.data_ptr(), weight.data_ptr(), y.data_ptr(), n,
+        c, f, depth, h, w, int(x.dtype == torch.bfloat16),
+        int(weight.dtype == torch.float32), int(flip),
         cuda_lib.stream_ptr(x.device))
     conv3d_flat.launches += 1
     return y
 
 
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
+def dw_scratch(n: int, c: int, f: int, h: int, w: int, dtype,
+               n_sm: int) -> dict:
+    """The weight-gradient kernels' scratch, as ``csrc/conv3d_flat.cu``'s
+    ``conv3d_flat_dw`` states it: {"partials": f32 elements, "u": bf16
+    elements} (bf16: x channels fastest and the partial sums of a group of
+    at most 32 output and 64 input channels over at most ``n_sm`` blocks;
+    f32: one [3F, 9C] partial per slice of the grid)."""
+    if dtype == torch.bfloat16:
+        return {"partials": n_sm * 9 * round16(min(c, DW_GROUPS[1]))
+                * round16(3 * min(f, DW_GROUPS[0])),
+                "u": n * h * w * round16(c)}
+    tiles = ceil_div(f, DW32_TILE[0]) * ceil_div(c, DW32_TILE[1])
+    return {"partials": max(1, n_sm // tiles) * 27 * f * c, "u": 0}
 
 
 def conv3d_flat_dw(x: torch.Tensor, dy: torch.Tensor,
                    depth: int) -> torch.Tensor:
-    """The weight-gradient kernel on CUDA tensors: the contract of
+    """The weight-gradient kernels on CUDA tensors: the contract of
     ``conv3d_flat_dw_plain`` (x, dy contiguous, both f32 or both bf16)."""
     n, c, h, w = x.shape
     f = dy.shape[1]
@@ -127,17 +153,18 @@ def conv3d_flat_dw(x: torch.Tensor, dy: torch.Tensor,
             or not dy.is_contiguous() or dy.shape != (n, f, h, w)):
         raise ValueError(f"conv3d_flat dw: dy must be a contiguous "
                          f"{x.dtype} [N, F, H, W] tensor on {x.device}")
-    tiles = _ceil_div(3 * f, _DW_TILE[0]) * _ceil_div(9 * c, _DW_TILE[1])
-    units = n * _ceil_div(h, _DW_UNIT[0]) * _ceil_div(w, _DW_UNIT[1])
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    slices = max(1, min(units, n_sm // tiles))
-    dw = torch.empty((3 * f, 9 * c), dtype=torch.float32, device=x.device)
-    partials = torch.empty((slices, 3 * f, 9 * c), dtype=torch.float32,
+    n_sm = cuda_lib.sm_count(x.device)
+    need = dw_scratch(n, c, f, h, w, x.dtype, n_sm)
+    dw = torch.empty((3 * f, c, 3, 3), dtype=torch.float32, device=x.device)
+    partials = torch.empty(need["partials"], dtype=torch.float32,
                            device=x.device)
+    u = (torch.empty(need["u"], dtype=torch.bfloat16, device=x.device)
+         if need["u"] else None)
     cuda_lib.library().call(
         "conv3d_flat_dw", x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-        partials.data_ptr(), n, c, f, depth, h, w, slices,
-        int(x.dtype == torch.bfloat16), cuda_lib.stream_ptr(x.device))
+        partials.data_ptr(), u.data_ptr() if u is not None else None, n, c,
+        f, depth, h, w, n_sm, int(x.dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(x.device))
     conv3d_flat.dw_launches += 1
     # rows kd*F + f, columns c*9 + kh*3 + kw -> [F, C, 3, 3, 3]
     return dw.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4)
@@ -159,12 +186,11 @@ class _Conv3dFlat(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
-        kt = flip_weight(weight)
         if x.device.type == "cpu":
-            dx = conv3d_flat_plain(dy, kt, ctx.depth)
+            dx = conv3d_flat_plain(dy, flip_weight(weight), ctx.depth)
             dw = conv3d_flat_dw_plain(x, dy, ctx.depth)
         else:
-            dx = conv3d_flat_fwd(dy, kt, ctx.depth)
+            dx = conv3d_flat_fwd(dy, weight, ctx.depth, flip=True)
             dw = conv3d_flat_dw(x, dy, ctx.depth)
         return dx, dw.to(weight.dtype), None
 

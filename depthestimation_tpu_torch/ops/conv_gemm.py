@@ -255,3 +255,87 @@ def convcomb_fwd_gemm(x, wm, a, b, depth: int, h: int, w: int,
     part = (taps[1] + torch.roll(taps[0], 1, 0) * dn).to(x.dtype).float()
     y = (part + torch.roll(taps[2], -1, 0) * up).to(x.dtype)
     return y, _stats(y)
+
+
+# ---- the flat conv3d op (csrc/conv3d_flat.cu): the ring kernel's conv3d
+#      mode and the three-tap weight gradient over dy
+
+
+def conv3d_chunk(c: int) -> int:
+    """Input channels of one K chunk of the bf16 forward (the halo holds
+    one): 16 where C <= 16, else 32 (``ring::with_shape``)."""
+    return 16 if c <= 16 else 32
+
+
+def conv3d_fwd_weights(weight: torch.Tensor, k0: int, cp: int, o0: int,
+                       st: int, flip: bool = False) -> torch.Tensor:
+    """The B of one (K chunk, output group) read from the op's weight by
+    index: [9*cp, 3*st], ``B[s*cp + k][t*st + o] = W5[o0 + o, k0 + k, t,
+    s]``, or with ``flip`` (the data gradient) ``W5[k0 + k, o0 + o, 2 - t,
+    8 - s]``; zero past the weight's channels."""
+    w5 = weight.transpose(0, 1).flip(2, 3, 4) if flip else weight
+    blk = w5[o0:o0 + st, k0:k0 + cp].reshape(-1, min(cp, w5.shape[1] - k0),
+                                             3, 9)
+    out = torch.zeros(9, cp, 3, st, dtype=weight.dtype)
+    out[:, :blk.shape[1], :, :blk.shape[0]] = blk.permute(3, 1, 2, 0)
+    return out.reshape(9 * cp, 3 * st)
+
+
+def conv3d_fwd_gemm(x: torch.Tensor, weight: torch.Tensor, depth: int,
+                    flip: bool = False) -> torch.Tensor:
+    """The bf16 forward (and with ``flip`` the data gradient) as the ring
+    kernel computes it: per output group of 32 channels (blockIdx.z), the
+    three taps' GEMM over K chunks of ``conv3d_chunk(C)`` input channels
+    summed in f32, each tap rounded to x's dtype, the ring ``part(n) =
+    t1(n) + t0(n-1)`` in f32 and ``y(n) = T(part(n) + t2(n+1))``. x [N, C,
+    H, W] -> [N, F, H, W], the contract of ``conv3d_flat_plain(x, weight)``
+    (``flip_weight(weight)`` with ``flip``)."""
+    n, c, h, w = x.shape
+    f = weight.shape[1] if flip else weight.shape[0]
+    cp = conv3d_chunk(c)
+    st = tap_stride(min(f, 32))
+    wf = weight.to(x.dtype).float()       # the kernel rounds W5 to x's type
+    out = []
+    for o0 in range(0, f, 32):
+        p = 0
+        for k0 in range(0, c, cp):
+            xc = x[:, k0:k0 + cp].float()
+            p = p + im2col(xc, cp) @ conv3d_fwd_weights(wf, k0, cp, o0, st,
+                                                        flip)
+        fg = min(st, f - o0)
+        taps = [p[:, t * st:t * st + fg].reshape(n, h, w, fg)
+                .permute(0, 3, 1, 2).to(x.dtype).float() for t in range(3)]
+        row = torch.arange(n) % depth
+        dn = (row > 0).reshape(-1, 1, 1, 1)
+        up = (row < depth - 1).reshape(-1, 1, 1, 1)
+        part = taps[1] + torch.roll(taps[0], 1, 0) * dn
+        out.append((part + torch.roll(taps[2], -1, 0) * up).to(x.dtype))
+    return torch.cat(out, 1)
+
+
+def conv3d_dw_gemm(x: torch.Tensor, dy: torch.Tensor, depth: int,
+                   groups=(32, 64)) -> torch.Tensor:
+    """The weight gradient as the bf16 kernel computes it: u = x (no
+    normalize), G = dy's three depth taps (``depth_taps``: N = 3F), per
+    group of at most ``groups`` = (32 output, 64 input) channels the GEMM
+    ``P[s*Cp + c, t*F + f] = sum_p u[c, p + shift_s] G[p, t*F + f]`` (M =
+    9 Cp, K = every pixel), written into the group's rows t*F + f0 + f and
+    channels c0 + c of dw [3F, C, 3, 3]. Returns [F, C, 3, 3, 3] f32, the
+    contract of ``conv3d_flat_dw_plain``."""
+    n, c, h, w = x.shape
+    f = dy.shape[1]
+    dw = torch.zeros(3 * f, c, 3, 3)
+    xf, gf = x.float(), dy.float()
+    for f0 in range(0, f, groups[0]):
+        fg = min(groups[0], f - f0)
+        g = depth_taps(gf[:, f0:f0 + fg], depth)                # [N, 3fg, ..]
+        g = g.permute(0, 2, 3, 1).reshape(n * h * w, 3 * fg)
+        for c0 in range(0, c, groups[1]):
+            cg = min(groups[1], c - c0)
+            cp = round16(cg)
+            p = im2col(xf[:, c0:c0 + cg], cp).t() @ g            # [9cp, 3fg]
+            blk = weight_from_gemm(p, 3 * fg, cg, cp)           # [3fg, cg..]
+            for t in range(3):
+                dw[t * f + f0:t * f + f0 + fg, c0:c0 + cg] = \
+                    blk[t * fg:(t + 1) * fg]
+    return dw.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4)

@@ -42,10 +42,10 @@ _SIGNATURES = {
     "convbn2d_bwd": [_VP] * 14 + [_I] * 10 + [_VP],
     "tap_combine_fwd": [_VP] * 2 + [_I] * 5 + [_VP],
     "tap_combine_bwd": [_VP] * 2 + [_I] * 5 + [_VP],
-    "correlation_fwd": [_VP] * 3 + [_I] * 5 + [_VP],
-    "correlation_bwd": [_VP] * 5 + [_I] * 5 + [_VP],
-    "conv3d_flat_fwd": [_VP] * 3 + [_I] * 7 + [_VP],
-    "conv3d_flat_dw": [_VP] * 4 + [_I] * 8 + [_VP],
+    "correlation_fwd": [_VP] * 4 + [_I] * 6 + [_VP],
+    "correlation_bwd": [_VP] * 5 + [_I] * 6 + [_VP],
+    "conv3d_flat_fwd": [_VP] * 3 + [_I] * 9 + [_VP],
+    "conv3d_flat_dw": [_VP] * 5 + [_I] * 8 + [_VP],
 }
 
 

@@ -584,7 +584,7 @@ def test_forward_call_launches_only_its_kernels(dev, layer):
             us = getattr(ev, "cuda_time_total", 0.0)
         if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
             names.append(ev.key)
-    want = "convbn2d_kernel" if layer == "convbn2d" else "convcomb_kernel"
+    want = "convbn2d_kernel" if layer == "convbn2d" else "ring_kernel"
     assert len(names) == 2, names
     assert any(want in nm for nm in names), names
     assert any("stats_reduce_kernel" in nm for nm in names), names
@@ -806,9 +806,13 @@ from depthestimation_tpu_torch.ops import correlation as cr  # noqa: E402
 from depthestimation_tpu_torch.ops import correlation_kernel as crk  # noqa: E402,E501
 
 # (B, C, H, W, md): odd sizes, tiles cut at both edges, PWCLite's coarsest
-# level, a search range below 4, fewer channels than a chunk
+# level, a search range below 4, fewer channels than a chunk; then
+# PWCLite's five levels of a 384x832 pair at B=8 (the channels split
+# across blocks at the coarse ones)
 _CORR_SHAPES = [(2, 8, 11, 13, 4), (1, 192, 6, 13, 4), (3, 32, 20, 40, 2),
-                (2, 16, 9, 70, 1), (1, 5, 3, 5, 3)]
+                (2, 16, 9, 70, 1), (1, 5, 3, 5, 3),
+                (8, 192, 6, 13, 4), (8, 128, 12, 26, 4), (8, 96, 24, 52, 4),
+                (8, 64, 48, 104, 4), (8, 32, 96, 208, 4)]
 
 
 @pytest.mark.parametrize("b,c,h,w,md", _CORR_SHAPES)
@@ -831,6 +835,21 @@ def test_correlation_kernels_match_plain(dev, b, c, h, w, md):
             (dx1, dx2), cr.correlation_bwd_plain(x1, x2, g, md))):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("b,c,h,w", [(8, 192, 6, 13), (8, 32, 96, 208)])
+def test_correlation_kernels_repeat_bit_for_bit(dev, b, c, h, w):
+    """No atomics: two launches give equal out (its channel groups added
+    in a fixed order at the coarse level), dx1 and dx2."""
+    gen = torch.Generator().manual_seed(c + h)
+    x1 = _randn(gen, b, c, h, w).to(dev)
+    x2 = _randn(gen, b, c, h, w).to(dev)
+    g = _randn(gen, b, 81, h, w).to(dev)
+    first = (crk.correlate(x1, x2),) + crk.correlate_bwd(x1, x2, g)
+    second = (crk.correlate(x1, x2),) + crk.correlate_bwd(x1, x2, g)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 def test_correlation_autograd_runs_the_backward_kernel(dev):
@@ -865,29 +884,33 @@ def test_correlation_refuses_what_the_kernel_does_not_take(dev):
 
 
 # (N, depth, C, F, H, W): chunks cut in C and F, tiles cut at both edges,
-# depth 1 (both depth edges on every row), F = 3, Base3D's layer
+# depth 1 (both depth edges on every row), F = 3, Base3D's layer, and C > 32
+# with F > 32 (two K chunks, two output groups; dx the other way round)
 _C3_SHAPES = [(16, 8, 32, 32, 16, 24), (6, 3, 5, 40, 7, 9),
               (4, 4, 20, 3, 33, 37), (2, 1, 8, 8, 5, 6),
-              (64, 64, 32, 32, 64, 96)]
+              (64, 64, 32, 32, 64, 96), (8, 4, 40, 36, 9, 20)]
 
 
 @pytest.mark.parametrize("n,depth,c,f,h,w", _C3_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv3d_kernels_match_plain(dev, n, depth, c, f, h, w, dtype):
-    """Forward, dx (the forward kernel over the flipped weight) and dW
-    against the plain versions: f32 within 1e-4 max|plain|; bf16 y and dx
-    (taps rounded to bf16) within 2^-6 max|plain|, dW (f32 sums) 1e-3."""
+    """Forward, dx (the forward kernel reading the weight flipped and
+    I/O-swapped, and the same over a flipped copy) and dW against the
+    plain versions: f32 within 1e-4 max|plain|; bf16 y and dx (taps
+    rounded to bf16) within 2^-6 max|plain|, dW (f32 sums) 1e-3."""
     gen = torch.Generator().manual_seed(n + c + f + h)
     x = _randn(gen, n, c, h, w).to(dev, dtype)
     wt = _randn(gen, f, c, 3, 3, 3, scale=0.1).to(dev)
     dy = _randn(gen, n, f, h, w, scale=0.1).to(dev, dtype)
     before = (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches)
     y = c3.conv3d_flat_fwd(x, wt, depth)
-    dx = c3.conv3d_flat_fwd(dy, c3.flip_weight(wt), depth)
+    dx = c3.conv3d_flat_fwd(dy, wt, depth, flip=True)
+    dx_copy = c3.conv3d_flat_fwd(dy, c3.flip_weight(wt), depth)
     dw = c3.conv3d_flat_dw(x, dy, depth)
     torch.cuda.synchronize()
     assert (c3.conv3d_flat.launches, c3.conv3d_flat.dw_launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 3, before[1] + 1)
+    assert torch.equal(dx, dx_copy)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     for got, ref in ((y, c3.conv3d_flat_plain(x, wt, depth)),
                      (dx, c3.conv3d_flat_plain(dy, c3.flip_weight(wt),
@@ -899,6 +922,26 @@ def test_conv3d_kernels_match_plain(dev, n, depth, c, f, h, w, dtype):
     assert dw.dtype == torch.float32 and dw.shape == wt.shape
     torch.testing.assert_close(dw, ref, rtol=0, atol=(
         1e-4 if dtype == torch.float32 else 1e-3) * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_kernels_repeat_bit_for_bit(dev, dtype):
+    """No atomics: two launches give equal y, dx and dW (Base3D's layer
+    shape, and C > 32 with F > 32)."""
+    gen = torch.Generator().manual_seed(9)
+    for n, depth, c, f, h, w in (_C3_SHAPES[4], _C3_SHAPES[5]):
+        x = _randn(gen, n, c, h, w).to(dev, dtype)
+        wt = _randn(gen, f, c, 3, 3, 3, scale=0.1).to(dev)
+        dy = _randn(gen, n, f, h, w, scale=0.1).to(dev, dtype)
+
+        def run():
+            return (c3.conv3d_flat_fwd(x, wt, depth),
+                    c3.conv3d_flat_fwd(dy, wt, depth, flip=True),
+                    c3.conv3d_flat_dw(x, dy, depth))
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_conv3d_autograd_runs_the_kernels(dev):
