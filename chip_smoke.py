@@ -76,7 +76,22 @@ Phases, one line each (a failed phase exits non-zero before the result):
    forward, loss, backward and Adam, with the correlation kernels' device
    ms in one step and peak memory;
    ``_validate_with_gt`` on 2 batches (finite EPE); one SintelARTrainer
-   step at B=2 (20 + 15 correlation launches, finite l_atst and l_ot).
+   step at B=2 (20 + 15 correlation launches, finite l_atst and l_ot);
+10. the depth trainer through its CLI (``python -m
+   depthestimation_tpu_torch.train``'s ``main``) in ``build/phase10``, on
+   bf16 copies of ``configs/synthetic_tpu.json`` (exp7, 384x256, D 64, fd
+   64, ``-b 8``): one epoch (8 steps, batches from the spawned loader
+   process, then the validation: 2 frames), ``--resume`` for a second
+   epoch (the thread loader), ``--eval`` at batch 1; losses finite, per
+   step 2, 2, 16, 16, 76, 76 launches (sweep, Base3D, convbn2d, forward and
+   backward), per validation frame 1 sweep and 8 Base3D, ``{exp}.json``
+   with five finite metrics per epoch, ``_ckpt`` and ``_model_best``, the
+   resume at epoch 1, ``--eval``'s metrics within 1e-4 relative of
+   ``_model_best``'s weights validated in memory at batch 1, and
+   ``NetRuntime(save_root=...)`` answering a frame from ``_model_best``;
+   then one ``--lc`` epoch of ``configs/synthetic_tpu_lc.json`` (exp7_lc,
+   B=2) with ``prev_lc`` fed back; the median step ms (CUDA events), the
+   epoch's seconds and its share spent waiting on the loader.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -654,6 +669,14 @@ def phase_kernels(card):
                 bms = cuda_ms(lambda: tap_combine_bwd(g, 64), 10)
                 bplain_ms = cuda_ms(lambda: tap_combine_bwd_plain(g, 64), 5)
                 bd, bbd = bound(nbytes(t, y), 0.0), bound(nbytes(g, dt), 0.0)
+                # device ms with t (g) warm in the L2 from the last call,
+                # and cold: read from HBM, as in a step
+                dev_ms, bdev_ms = (sum(device_times(fn).values()) for fn in (
+                    lambda: tap_combine(t, 64),
+                    lambda: tap_combine_bwd(g, 64)))
+                cold_ms, bcold_ms = (sum(device_times(fn, cold=True).values())
+                                     for fn in (lambda: tap_combine(t, 64),
+                                                lambda: tap_combine_bwd(g, 64)))
                 if dtype == torch.bfloat16 and n == 512:
                     rows[("tap_combine", f)] = row(errs[0], ms, plain_ms,
                                                    None, bd)
@@ -662,9 +685,12 @@ def phase_kernels(card):
                 print(f"phase 3: tap_combine N={n} F={f} 64x96 "
                       f"{str(dtype)[6:]}: max|err| forward, backward "
                       f"{errs[0]:.4g}, {errs[1]:.4g}; forward kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{bd[0]:.4f} ms ({bd[1]}); backward kernel {bms:.4f} "
-                      f"ms, plain {bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms "
+                      f"{ms:.4f} ms (device {dev_ms:.4f} warm, "
+                      f"{cold_ms:.4f} L2 cold), plain "
+                      f"{plain_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); "
+                      f"backward kernel {bms:.4f} ms (device {bdev_ms:.4f} "
+                      f"warm, {bcold_ms:.4f} L2 cold), "
+                      f"plain {bplain_ms:.4f} ms, bound {bbd[0]:.4f} ms "
                       f"({bbd[1]}) [{card}]", flush=True)
                 del t, g, y, dt
         torch.cuda.empty_cache()
@@ -1634,6 +1660,221 @@ def phase_flow(card):
     return counted
 
 
+# ------------------------------------------------------------ phase 10
+
+def _phase10_config(work, name, epochs):
+    """A bf16 copy of ``configs/{name}.json`` with ``epoch_num`` set, in
+    ``work``: the kernels run for a bf16 model only."""
+    with open(os.path.join(ROOT, "configs", name + ".json")) as f:
+        raw = json.load(f)
+    raw["tpu"] = {"dtype": "bfloat16"}
+    raw["train"]["epoch_num"] = epochs
+    path = os.path.join(work, name + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _sensor(w, h, d):
+    """A sensor JSON for ``NetRuntime`` at the synthetic camera (focal
+    0.58 w, principal point at the centre)."""
+    intr = [[0.58 * w, 0, 0.5 * w], [0, 0.58 * w, 0.5 * h], [0, 0, 1]]
+    return {"intr_rgb": intr, "intr_lc": intr, "dist_rgb": [0] * 5,
+            "dist_lc": [0] * 5, "size_rgb": [w, h], "size_lc": [w, h],
+            "rTc": np.eye(4).tolist(),
+            "lTc": [[1, 0, 0, 0.2], [0, 1, 0, 0], [0, 0, 1, 0],
+                    [0, 0, 0, 1]],
+            "N": d, "s_range": D_MIN, "e_range": D_MAX, "q_power": 1.0,
+            "laser_fov": 80.0, "laser_timestep": 2e-4}
+
+
+def phase_trainer(card):
+    """The depth trainer through its CLI (``depthestimation_tpu_torch.
+    train.main``) in ``build/phase10``: one bf16 epoch at B=8 with its
+    validation, ``--resume`` for a second, ``--eval``,
+    ``NetRuntime(save_root=...)``, then one ``--lc`` epoch at B=2."""
+    import shutil
+
+    import torch
+    from depthestimation_tpu_torch import train as ttrain
+    from depthestimation_tpu_torch.config import load_config
+    from depthestimation_tpu_torch.data.video_synthetic import (
+        SyntheticStereoVideoDataset)
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.runtime.net_runtime import NetRuntime
+    from depthestimation_tpu_torch.trainer import checkpoint as ckpt
+    from depthestimation_tpu_torch.trainer import default as tdefault
+    from depthestimation_tpu_torch.utils.logger import init_logger
+
+    work = os.path.join(ROOT, "build", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    per_step = (2, 2, 16, 16, 76, 76, 0, 0)
+    per_val_frame = (1, 0, 8, 0, 0, 0, 0, 0)
+    keys = ("rmse", "rmse_refined", "sil", "sil_refined", "rmse_unc")
+    steps = []          # (launches, start event, end event, prev_lc fed)
+    real_make = tdefault.make_train_step
+
+    def counted_make(loss_fn, lc_fn=None):
+        step = real_make(loss_fn, lc_fn=lc_fn)
+
+        def run(state, mi_l, mi_r, gt_l, gt_r, generator):
+            before = launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, mi_l, mi_r, gt_l, gt_r, generator)
+            end.record()
+            steps.append((tuple(a - b for a, b in
+                                zip(launch_counts(), before)),
+                          start, end, mi_l["prev_lc"] is not None))
+            return out
+        return run
+
+    def history(exp):
+        with open(os.path.join("outputs", "checkpoints", exp,
+                               exp + ".json")) as f:
+            return json.load(f)
+
+    def step_ms(run):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for _, s, e, _ in run]
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    tdefault.make_train_step = counted_make
+    try:
+        # epoch 1: dataset_path "synthetic" is no directory and the config
+        # sets var.mload, so the batches come from a spawned loader process
+        path = _phase10_config(work, "synthetic_tpu", 1)
+        reset_counts()
+        t0 = time.perf_counter()
+        first = ttrain.main(["--config", path, "-b", "8"])
+        wall1 = time.perf_counter() - t0
+        total = launch_counts()
+        run1 = list(steps)
+        check(len(run1) == 8, f"epoch 1 ran {len(run1)} steps, not 8")
+        for i, (got, _, _, _) in enumerate(run1):
+            check(got == per_step, f"epoch 1 step {i}: launches {got} != "
+                  f"{per_step}")
+        want = tuple(8 * a + 2 * b for a, b in zip(per_step, per_val_frame))
+        check(total == want, f"epoch 1 + validation: launches {total} != "
+              f"{want} (8 steps, 2 validation frames of 1 sweep and 8 "
+              "Base3D launches)")
+        losses1 = first._last_epoch_losses
+        check(all(np.isfinite(losses1)), f"epoch 1 losses {losses1}")
+        exp, save_root = "synthetic_tpu", first.save_root
+        for best in (False, True):
+            check(ckpt.checkpoint_exists(save_root, exp, best=best),
+                  f"no {'_model_best' if best else '_ckpt'} after epoch 1")
+        ms1 = step_ms(run1)
+        wait1 = first.loader_wait_seconds / first.epoch_seconds
+
+        # epoch 2 by --resume, the in-process thread loader (--synthetic)
+        path = _phase10_config(work, "synthetic_tpu", 2)
+        second = ttrain.main(["--config", path, "-b", "8", "--resume",
+                              "--synthetic"])
+        run2 = steps[len(run1):]
+        check(len(run2) == 8 and second.i_epoch == 2,
+              f"--resume ran {len(run2)} steps to epoch {second.i_epoch}: "
+              "it must start at epoch 1")
+        check(all(r[0] == per_step for r in run2), "epoch 2 launches")
+        check(all(np.isfinite(second._last_epoch_losses)),
+              f"epoch 2 losses {second._last_epoch_losses}")
+        hist = history(exp)
+        check(all(len(hist[k]) == 2 and np.isfinite(hist[k]).all()
+                  for k in keys), f"{exp}.json after 2 epochs: {hist}")
+        _, best_epoch = ckpt.load_checkpoint(save_root, exp, best=True)
+        check(best_epoch == 2, f"_model_best from epoch {best_epoch}, not "
+              "the resumed epoch (the best resets on resume)")
+        ms2 = step_ms(run2)
+        wait2 = second.loader_wait_seconds / second.epoch_seconds
+
+        # --eval restores _model_best and validates at batch 1; the same
+        # weights in memory (the resumed trainer's) validated at batch 1
+        # must give its metrics (BatchNorm takes batch statistics)
+        third = ttrain.main(["--config", path, "--eval", "--synthetic"])
+        got = [history(exp)[k][-1] for k in keys]
+        cfg1 = load_config(path)
+        cfg1.train.batch_size = 1
+        ref = tdefault.DefaultTrainer(
+            0, second.model, get_loss(cfg1), init_logger("phase10_ref"),
+            os.path.join(work, "ref"), cfg1,
+            val_loader=ttrain.build_loaders(cfg1, True)[1])
+        want_m, _ = ref.eval()
+        check(third.cfg.train.batch_size == 1 and len(history(exp)["rmse"])
+              == 3, "--eval did not append one batch-1 validation")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want_m))
+        check(rel <= 1e-4, f"--eval metrics {got} vs _model_best's weights "
+              f"validated in memory {want_m}: rel {rel:.3g} > 1e-4")
+
+        # the server restores _model_best and answers one frame
+        state, _ = ckpt.load_checkpoint(save_root, exp, best=True)
+        rt = NetRuntime(load_config(path), _sensor(384, 256, 64),
+                        mode="mono", save_root=save_root)
+        same = all(torch.equal(v, state["model"][k].to(v.device))
+                   for k, v in rt.model.state_dict().items())
+        check(same, "NetRuntime(save_root=...) weights differ from "
+              "_model_best")
+        frame = SyntheticStereoVideoDataset(
+            n_traj=1, traj_len=1, h=256, w=384, ndepth=64,
+            seed=2).frame(0, 0)["rgb_left"][-1]
+        out = rt.process_frame(frame)
+        dep = out["depth"]
+        check(bool(torch.isfinite(dep).all()) and dep.min().item() >=
+              D_MIN - 1e-3 and dep.max().item() <= D_MAX + 1e-3,
+              "NetRuntime depth from _model_best not finite in range")
+
+        # one --lc epoch (exp7_lc, B=2, the LC loop inside the step)
+        lc_path = _phase10_config(work, "synthetic_tpu_lc", 1)
+        n0 = len(steps)
+        t0 = time.perf_counter()
+        lc = ttrain.main(["--config", lc_path, "--synthetic", "--lc"])
+        wall_lc = time.perf_counter() - t0
+        run_lc = steps[n0:]
+        check(len(run_lc) == 8 and all(r[0] == per_step for r in run_lc),
+              f"LC epoch launches {[r[0] for r in run_lc]}")
+        fed = [r[3] for r in run_lc]
+        check(fed == [f > 0 for _ in range(2) for f in range(4)],
+              f"prev_lc fed back at {fed}: every frame after the first of "
+              "a trajectory must take the last step's feedback")
+        check(all(np.isfinite(lc._last_epoch_losses)),
+              f"LC losses {lc._last_epoch_losses}")
+        lc_hist = history("synthetic_tpu_lc")
+        check(all(np.isfinite(lc_hist[k][-1]) for k in keys),
+              f"LC validation {lc_hist}")
+        ms_lc = step_ms(run_lc)
+    finally:
+        tdefault.make_train_step = real_make
+        os.chdir(cwd)
+
+    def fmt(xs):
+        return [round(x, 3) for x in xs]
+
+    print(f"phase 10: trainer CLI exp7 384x256 fd=64 D=64 bf16 B=8: epoch 1 "
+          f"(spawned loader) losses {fmt(losses1)}, step ms median "
+          f"{float(np.median(ms1)):.3f} (CUDA events: {fmt(ms1)}), epoch "
+          f"{first.epoch_seconds:.3f} s of which loader wait "
+          f"{first.loader_wait_seconds:.3f} s ({100 * wait1:.1f}%), main() "
+          f"{wall1:.3f} s; launches per step {per_step}, per validation "
+          f"frame {per_val_frame}; epoch 2 (--resume, thread loader) step "
+          f"ms median {float(np.median(ms2)):.3f} ({fmt(ms2)}), epoch "
+          f"{second.epoch_seconds:.3f} s, loader wait "
+          f"{second.loader_wait_seconds:.3f} s ({100 * wait2:.1f}%); "
+          f"validation by epoch {({k: fmt(hist[k]) for k in keys})}; "
+          f"--eval (B=1, _model_best of epoch "
+          f"{best_epoch}) {fmt(got)} vs in memory rel {rel:.3g}; NetRuntime "
+          f"from _model_best depth [{dep.min().item():.3f}, "
+          f"{dep.max().item():.3f}] [{card}]", flush=True)
+    print(f"phase 10: --lc epoch exp7_lc 384x256 bf16 B=2: losses "
+          f"{fmt(lc._last_epoch_losses)}, prev_lc fed back at steps "
+          f"{[i for i, f in enumerate(fed) if f]}, step ms median "
+          f"{float(np.median(ms_lc)):.3f} ({fmt(ms_lc)}), epoch "
+          f"{lc.epoch_seconds:.3f} s, main() {wall_lc:.3f} s; validation "
+          f"{dict(zip(keys, fmt([lc_hist[k][-1] for k in keys])))} "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1665,6 +1906,7 @@ def main() -> int:
         phase_tail(card)
         lc_launches = phase_lc_train(card)
         flow_launches = phase_flow(card)
+        phase_trainer(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -87,15 +87,21 @@ def host_ms(fn, iters: int) -> float:
     return (t1 - t0) * 1e3 / iters
 
 
-def device_times(fn, iters: int = ITERS) -> dict:
+def device_times(fn, iters: int = ITERS, cold: bool = False) -> dict:
     """{kernel name: device ms per call of ``fn``} from the profiler (empty
-    if it sees no device time)."""
+    if it sees no device time). With ``cold`` a 64 MiB buffer is written
+    before each call, so that ``fn`` reads its inputs from HBM and not
+    from the L2 (50 MiB on the H100); that write's kernel is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    flush = (torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+             if cold else None)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if cold:
+                flush.fill_(1)
             fn()
         torch.cuda.synchronize()
     per = {}
@@ -103,7 +109,8 @@ def device_times(fn, iters: int = ITERS) -> dict:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
+        if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")) \
+                and not (cold and "FillFunctor" in ev.key):
             per[ev.key] = per.get(ev.key, 0.0) + us / 1e3 / iters
     return per
 

@@ -8,10 +8,11 @@ port honours ``tpu.dtype``, ``tpu.convbn2d`` (the fused 2D ConvBN routes),
 ``tpu.sweep_dtype`` (the sweep's compute dtype) and ``tpu.conv3d_flat``
 (False: JAX's 5-D Base3D route, the port's flat stack), and of ``var``
 also ``diffhomo`` (False: no sweep); see ``models/base_model.py``. The
-TPU-only knobs ``remat``, ``sweep_pallas`` and ``mesh`` are accepted and
-have no effect (see ``IGNORED_TPU_KEYS``). ``donate`` is a default that
-neither package reads; ``scan_train``, ``scan_eval`` and ``scan_chunk``
-belong to the JAX depth trainer, which the port does not have yet.
+TPU-only knobs ``remat``, ``sweep_pallas``, ``mesh`` and the depth
+trainer's ``lax.scan`` routes ``scan_train``, ``scan_eval`` and
+``scan_chunk`` are accepted and have no effect (see ``IGNORED_TPU_KEYS``):
+the port's trainer always runs its frame loop. ``donate`` is a default
+that neither package reads.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import json
 from typing import Any
 
 #: ``tpu.*`` keys the port accepts and ignores: they select TPU kernels,
-#: remat granularities or meshes that do not exist on the CUDA path
-IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "mesh")
+#: remat granularities, meshes or ``lax.scan`` rollouts that do not exist
+#: on the CUDA path
+IGNORED_TPU_KEYS = ("remat", "sweep_pallas", "mesh", "scan_train",
+                    "scan_eval", "scan_chunk")
 
 
 class Config(dict):

@@ -4,7 +4,7 @@ Port of ``depthestimation_tpu/ops/geometry.py`` (``intr_scale``,
 ``intr_scale_unit``,
 ``fov_from_intrinsics``, ``pixel_to_ray_array``, ``unit_ray_array_2d``,
 ``depth_to_pts``, ``minpool``, ``pixel2cam``, ``cam2pixel``,
-``inverse_warp``, ``transform_dmap``). The setup helpers stay host numpy,
+``inverse_warp``, ``transform_dmap``, ``add_noise_to_pose``). The setup helpers stay host numpy,
 as in JAX. The view-synthesis functions take a leading batch axis: each is
 the JAX per-item function vmapped. Their matmuls are f32 (JAX pins them to
 HIGHEST precision: they feed pixel coordinates).
@@ -146,3 +146,65 @@ def transform_dmap(depth: torch.Tensor, pose: torch.Tensor,
     pts = depth_to_pts(d, intr).reshape(b, 3, h * w)
     pts = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
     return torch.matmul(pose, pts)[:, 2].reshape(b, h, w)
+
+
+# ---------------------------------------------------------------------------
+# Pose noise (training augmentation)
+
+
+def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """TUM [..., (x, y, z, w)] quaternion -> [..., 3, 3] rotation."""
+    x, y, z, w = q.unbind(-1)
+    s = 1.0 / (w * w + x * x + y * y + z * z)
+    rows = [
+        [1 - 2 * s * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * s * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * s * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def _rot_to_unitq(r: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation -> [..., 3] xyz unit-quaternion parameters
+    (the trace > -1 branch: the small inter-frame rotations this
+    augments)."""
+    qw = 0.5 * torch.sqrt(torch.clamp(
+        r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2] + 1.0, min=1e-12))
+    s = 1.0 / (4.0 * qw)
+    qx = s * (r[..., 2, 1] - r[..., 1, 2])
+    qy = s * (r[..., 0, 2] - r[..., 2, 0])
+    qz = s * (r[..., 1, 0] - r[..., 0, 1])
+    alpha2 = (1.0 - qz) / (1.0 + qz)
+    half = (alpha2 + 1.0) * 0.5
+    return torch.stack([qw * half, qx * half, qy * half], -1)
+
+
+def _unitq_to_rot(uq: torch.Tensor) -> torch.Tensor:
+    x, y, z = uq.unbind(-1)
+    a2 = x * x + y * y + z * z
+    quat = torch.stack([2 * y / (a2 + 1), 2 * z / (a2 + 1),
+                        (1 - a2) / (1 + a2), 2 * x / (a2 + 1)], -1)
+    return _quat_to_rot(quat)
+
+
+def add_noise_to_pose(generator: torch.Generator, poses: torch.Tensor,
+                      noise_level: float = 0.2) -> torch.Tensor:
+    """Gaussian pose noise (the ``var.pnoise`` augmentation): rotation in
+    unit-quaternion space, translation in raw space, each with sigma
+    ``noise_level`` times its own norm. poses [B, V, 4, 4] -> the same
+    shape; the draws come from ``generator``, on the poses' device."""
+    poses = poses.float()
+    shape = poses.shape[:-2] + (3,)
+    nr = torch.randn(shape, generator=generator, device=poses.device)
+    nt = torch.randn(shape, generator=generator, device=poses.device)
+    r = _rot_to_unitq(poses[..., :3, :3])
+    t = poses[..., :3, 3]
+    r = r + nr * (noise_level * torch.linalg.vector_norm(r, dim=-1,
+                                                         keepdim=True))
+    t = t + nt * (noise_level * torch.linalg.vector_norm(t, dim=-1,
+                                                         keepdim=True))
+    out = torch.zeros_like(poses)
+    out[..., :3, :3] = _unitq_to_rot(r)
+    out[..., :3, 3] = t
+    out[..., 3, 3] = 1.0
+    return out

@@ -1,7 +1,8 @@
 """Uncertainty field (UF): top-down collapse of a DPV.
 
 Port of ``depthestimation_tpu/ops/ufield.py`` (``UFieldParams``,
-``gen_ufield``).
+``gen_ufield``, ``compute_unc_field``, ``compute_unc_rmse``), each for one
+item or a batch.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ class UFieldParams:
 
 
 def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
-               log: bool = True):
+               log: bool = True, mask: torch.Tensor | None = None):
     """Collapse a DPV [..., D, H, W] into a top-down field, one item or a
-    batch (intr_up [..., 3, 3] with the same leading axes).
+    batch (intr_up [..., 3, 3] and the optional validity ``mask`` [..., H,
+    W] with the same leading axes).
 
     Returns (uf [..., D, W], masked_depthmap [..., H, W]). A column with no
     pixel in the band divides by zero, as in JAX.
@@ -57,6 +59,8 @@ def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
     zero_mask = ~((y > p.zend) | (y < p.zstart)
                   | (z > p.maxd - 1) | (z < p.mind))
     zero_mask = zero_mask.to(dpv.dtype)
+    if mask is not None:
+        zero_mask = zero_mask * shift_rows(mask.to(dpv.dtype), p.pshift)
 
     if p.quash:
         cleaned = dm_shifted * zero_mask
@@ -73,3 +77,32 @@ def gen_ufield(dpv: torch.Tensor, d_candi, intr_up, params: UFieldParams,
     uf = (prob * zero_mask_pred[..., None, :, :]).sum(dim=-2)
     uf = uf / zero_mask.sum(dim=-2)[..., None, :]
     return uf, dm_pred_zero
+
+
+def compute_unc_field(dpv_pred, dpv_truth, d_candi, intr_up, mask,
+                      params: UFieldParams):
+    """(uf_truth, uf_predicted, debugmap): the field of the (linear)
+    ground-truth soft labels under ``mask`` and of the (log) prediction."""
+    uf_truth, _ = gen_ufield(dpv_truth, d_candi, intr_up, params, log=False,
+                             mask=mask)
+    uf_pred, debugmap = gen_ufield(dpv_pred, d_candi, intr_up, params,
+                                   log=True)
+    return uf_truth, uf_pred, debugmap
+
+
+def compute_unc_rmse(uf_truth: torch.Tensor, uf_pred: torch.Tensor,
+                     d_candi) -> torch.Tensor:
+    """UF depth error of fields [..., D, W] -> [...]. Despite the name it
+    is the mean ABSOLUTE error of the per-column expected depths, as the
+    reference computes it; the first and last predicted columns count as
+    0 and NaN columns drop out."""
+    d = torch.as_tensor(d_candi, dtype=uf_pred.dtype,
+                        device=uf_pred.device)[:, None]
+    td = (d * uf_truth).sum(dim=-2)
+    pd = (d * uf_pred).sum(dim=-2).clone()
+    pd[..., 0] = 0.0
+    pd[..., -1] = 0.0
+    valid = ~(torch.isnan(td) | torch.isnan(pd))
+    td = torch.where(valid, td, 0.0)
+    pd = torch.where(valid, pd, 0.0)
+    return torch.abs(td - pd).sum(dim=-1) / valid.sum(dim=-1)

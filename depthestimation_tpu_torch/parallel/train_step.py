@@ -7,8 +7,9 @@ parameters stay f32 and the optimizer state f32; a bf16 model computes in
 bf16 (its kernels) and casts at use. PyTorch updates the parameters and the
 optimizer state in place, where JAX returns new ones. With ``lc_fn`` the
 light-curtain loop runs inside the step on the detached refined DPVs and
-its ``prev_lc`` feedback lands in ``aux``. ``make_train_rollout`` (the
-``lax.scan`` over frames) is not ported yet (ROADMAP.md, queue 1).
+its ``prev_lc`` feedback lands in ``aux``. JAX's ``make_train_rollout``
+(the step under ``lax.scan``) has no counterpart: on the card a chunk of
+frames is the trainer's frame loop over this step.
 """
 
 from __future__ import annotations

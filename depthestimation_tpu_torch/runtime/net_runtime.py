@@ -8,9 +8,11 @@ rays, poses), runs the network forward per incoming frame under
 depth, the refined DPV, the uncertainty field and the low-res DPV.
 
 Weights come from a ``state_dict`` (for example
-``weights.from_jax_params`` of a JAX checkpoint's variables) or from a
-seeded init. Checkpoint restore and the in-process light-curtain planner
-(``prev_lc`` feedback) wait for the trainer and LC slices (ROADMAP.md).
+``weights.from_jax_params`` of a JAX checkpoint's variables), from the
+``{exp}_model_best`` checkpoint the depth trainer wrote under
+``save_root``, or from a seeded init. The in-process light-curtain
+planner (``prev_lc`` feedback) waits for the LC serving slice (ROADMAP.md,
+queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from depthestimation_tpu_torch.ops import dpv as dpv_ops
 from depthestimation_tpu_torch.ops import geometry
 from depthestimation_tpu_torch.ops.ufield import UFieldParams, gen_ufield
 from depthestimation_tpu_torch.runtime.planner_runtime import process_lc_json
+from depthestimation_tpu_torch.trainer.checkpoint import load_checkpoint
 
 #: deployment mode -> model nmode + stereo flag
 MODES = {
@@ -44,7 +47,10 @@ class NetRuntime:
       sensor_json: path or dict of device calibration (real_sensor.json
         schema).
       mode: one of ``MODES``.
-      state_dict: model weights; None draws them from ``seed``.
+      state_dict: model weights; None restores them from ``save_root``
+        or, without it, draws them from ``seed``.
+      save_root: the trainer's checkpoint directory: the weights of
+        ``{cfg.data.exp_name}_model_best`` there.
       seed: seed of the ``torch.Generator`` for the init.
       device: where the model and every per-frame tensor live: the card
         unless the caller names the CPU (without a card the default
@@ -52,13 +58,20 @@ class NetRuntime:
     """
 
     def __init__(self, cfg, sensor_json, mode: str = "mono",
-                 state_dict=None, seed: int = 0, device="cuda"):
+                 state_dict=None, seed: int = 0, device="cuda",
+                 save_root: str | None = None):
         spec = MODES[mode]
         self.mode = mode
         self.stereo = spec["stereo"]
         cfg.var.nmode = spec["nmode"]
         self.cfg = cfg
         self.device = torch.device(device)
+        if state_dict is not None and save_root is not None:
+            raise ValueError("pass state_dict or save_root, not both")
+        if save_root is not None:
+            state, _ = load_checkpoint(save_root, cfg.data.exp_name,
+                                       best=True, map_location=self.device)
+            state_dict = state["model"]
         self.model = get_model(cfg, self.device,
                                seed=seed if state_dict is None else None)
         if state_dict is not None:

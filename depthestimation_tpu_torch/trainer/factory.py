@@ -1,7 +1,6 @@
 """Trainer factory (port of ``depthestimation_tpu/trainer/factory.py``):
-the flow trainers. The depth trainers ("default", "sweep") are not ported
-yet (ROADMAP.md, queue 1: "Depth trainer and CLI" and "Off-main-path
-models")."""
+the depth trainer ("default") and the flow trainers. The sweep trainer is
+not ported yet (ROADMAP.md, queue 1: "Off-main-path models")."""
 
 from __future__ import annotations
 
@@ -15,9 +14,8 @@ def get_trainer(cfg):
         from depthestimation_tpu_torch.trainer.sintel import SintelARTrainer
         return SintelARTrainer
     if name == "default":
-        raise NotImplementedError(
-            "trainer 'default' is not ported yet (ROADMAP.md, queue 1: "
-            "\"Depth trainer and CLI\")")
+        from depthestimation_tpu_torch.trainer.default import DefaultTrainer
+        return DefaultTrainer
     if name == "sweep":
         raise NotImplementedError(
             "trainer 'sweep' is not ported yet (ROADMAP.md, queue 1: "

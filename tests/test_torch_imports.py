@@ -39,7 +39,9 @@ def test_port_imports_no_jax():
                  "ops.correlation", "ops.correlation_kernel",
                  "ops.conv3d_kernel", "models.pwclite", "losses.flow_loss",
                  "utils", "utils.logger", "trainer.checkpoint",
-                 "trainer.sintel", "trainer.factory"):
+                 "trainer.sintel", "trainer.factory",
+                 "data.video_synthetic", "data.scheduler", "ops.metrics",
+                 "utils.visual", "train"):
         assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]

@@ -111,7 +111,8 @@ def test_get_model_seeded_and_tpu_knobs_ignored():
     accepted and change nothing. ``convcomb_pallas`` and ``combine_pallas``
     are not among them: they route Base3D
     (tests/test_torch_combine.py)."""
-    assert tcfg.IGNORED_TPU_KEYS == ("remat", "sweep_pallas", "mesh")
+    assert tcfg.IGNORED_TPU_KEYS == ("remat", "sweep_pallas", "mesh",
+                                     "scan_train", "scan_eval", "scan_chunk")
     knobs = {k: True for k in tcfg.IGNORED_TPU_KEYS}
     a = get_model(_cfg("bfloat16"), "cpu", seed=5).state_dict()
     m = get_model(_cfg("bfloat16", **knobs), "cpu", seed=5)
