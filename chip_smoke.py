@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU: the serving
 path, the bf16 train step, the train step with the light-curtain loop
-inside, and PWCLite optical-flow training.
+inside, PWCLite optical-flow training, and light-curtain serving with the
+recorded-sweep paths.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -29,7 +30,9 @@ Phases, one line each (a failed phase exits non-zero before the result):
    device times and the sum a flow step launches), and the flat conv3d op
    (forward, dx, dW) at Base3D's layer shape in bf16 and f32 beside
    cuDNN's conv3d and the port's flat ``Conv3d``, each bit-equal over two
-   launches;
+   launches; and the shapes of phase 11's training paths (nmode lc's
+   Base3D entry layer C=4 -> F=32 at N=128, 64x80; the encoder's fused
+   layers at 320x256 with 4 images a call), forward and backward;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -91,7 +94,34 @@ Phases, one line each (a failed phase exits non-zero before the result):
    ``NetRuntime(save_root=...)`` answering a frame from ``_model_best``;
    then one ``--lc`` epoch of ``configs/synthetic_tpu_lc.json`` (exp7_lc,
    B=2) with ``prev_lc`` fed back; the median step ms (CUDA events), the
-   epoch's seconds and its share spent waiting on the loader.
+   epoch's seconds and its share spent waiting on the loader;
+11. light-curtain serving and the recorded-sweep paths: (a) ``NetRuntime``
+   (mono_lc, ``real_sensor.json``, 320x256, fd 64, D 64, bf16, seeded
+   weights) with ``planner="default"`` answers 4 frames with
+   ``depth_sense`` from a ray-cast basement: per frame 1 sweep and 8
+   Base3D launches, ``lc_depth`` finite in [s_range, e_range] where
+   ``lc_mask`` is set, ``prev_lc`` (1, 64, 64, 80) finite and
+   normalized, no carry after ``reset()``; ms per frame with and without
+   the planner (CUDA events, host wall beside them) and the planner
+   round's split (planning, of it the DP; sensing; integrating); (b)
+   ``PlannerRuntime`` sim, 20 rounds scored before each, noise off, on
+   ``basement_sensor.json`` at full size for the deterministic
+   configurations of ``benchmarks/uf_convergence.py``: ``sweep`` within 2%
+   of ``uf_convergence_curves.json`` from round 2 on, the other three's
+   final score within 20%; ``m1`` on the port's generator, printed; ms per
+   round; (c) the real path against a serial device with a 5 ms
+   exposure, pipelined (``send_fn`` / ``recv_fn``) and through
+   ``sense_fn``: the round's wall ms, the measurement DPVs equal; (d)
+   ``DefaultTrainer`` on a bf16 copy of
+   ``configs/default_318_lc_sweep.json`` (nmode lc, 320x256, D 64, fd 64,
+   LC on; its curtains on the synthetic camera's bundle, the frame the
+   synthetic sweep is recorded in) over ``SyntheticSweepVideoDataset``
+   with 128 planes, B=2, 2 steps: every LC call through
+   ``lc_process_real``, ``prev_lc`` finite, per step (0, 0, 16, 16, 76,
+   76, 0, 0) launches, rule-4 gradients against an f32 plain step; the
+   step and ``lc_process_real`` ms; (e) ``SweepTrainer`` on
+   ``configs/sweep_model.json`` (320x256, f32) over synthetic sweeps, B=2,
+   2 steps and a validation: finite losses, no kernel launch, ms per step.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -1875,6 +1905,683 @@ def phase_trainer(card):
           f"[{card}]", flush=True)
 
 
+def phase_kernels_lc(card):
+    """Phase 3, the shapes of phase 11's training paths that the rows above
+    do not cover: nmode lc's first Base3D layer (C=4 -> F=32, no ReLU on
+    the raw volume) at B=2, D=64, 64x80, and the encoder's two fused
+    layers at 320x256 with 4 images a call (B=2, two frames); forward and
+    backward, the bounds above, bit-equal over two launches."""
+    import torch
+    import torch.nn.functional as F
+    from conv_bwd_split import device_times
+    from depthestimation_tpu_torch.ops.convbn2d_kernel import (
+        convbn2d_block, convbn2d_block_bwd, convbn2d_block_bwd_plain,
+        convbn2d_block_plain)
+    from depthestimation_tpu_torch.ops.convcomb_kernel import (
+        convbn_block, convbn_block_bwd, convbn_block_bwd_plain,
+        convbn_block_plain)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(11)
+
+    def operands(x_shape, w_shape, c, wscale):
+        x = torch.randn(x_shape, generator=gen).to(dev, bf)
+        wt = (torch.randn(w_shape, generator=gen) * wscale).to(dev, bf)
+        a = (torch.rand(c, generator=gen) * 0.5 + 0.75).to(dev)
+        b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+        return x, wt, a, b
+
+    def both(tag, fwd, fwd_plain, bwd, bwd_plain, x, wt, a, b, act_on,
+             args, flops, lib_operands):
+        """One layer forward and backward against the plain versions;
+        ``lib_operands(gy)`` gives cuDNN's conv (forward and backward) on
+        the normalized input, the library yardsticks."""
+        y, st = fwd(x, wt, a, b, *args)
+        y2, st2 = fwd(x, wt, a, b, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"{tag}: two forward launches differ")
+        y_p, st_p = fwd_plain(x, wt, a, b, *args)
+        err = (y.float() - y_p.float()).abs().max().item()
+        scale = y_p.float().abs().max().item() + 1e-6
+        check(err <= 0.03 * scale, f"{tag}: y err {err} > 3% of {scale}")
+        check(bool(torch.allclose(st, st_p, rtol=3e-2,
+                                  atol=1e-2 * y.numel() / y.shape[1])),
+              f"{tag}: stats {st.tolist()[:2]} vs {st_p.tolist()[:2]}")
+        gy = (torch.randn(y.shape, generator=gen) * 0.1).to(dev, bf)
+        gs = (torch.randn(y.shape[1], 2, generator=gen) * 1e-3).to(dev)
+        bargs = (x, wt, a, b, y_p, gy, gs, *args)
+        got, again = bwd(*bargs), bwd(*bargs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g1, g2) for g1, g2 in zip(got, again)),
+              f"{tag}: two backward launches differ")
+        want = bwd_plain(*bargs)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        v = x.float() * a.reshape(shape) + b.reshape(shape)
+        inner = (v.abs() > 0.02 if act_on
+                 else torch.ones_like(v, dtype=torch.bool))
+        errs = []
+        for g, p, nm, tol in zip(got, want, ("dx", "dW", "da", "db"),
+                                 (0.03, 0.03, 0.10, 0.10)):
+            d = (g.float() - p.float()).abs()
+            e = (d[inner] if nm == "dx" else d).max().item()
+            bnd = tol * p.float().abs().max().item()
+            check(np.isfinite(e) and e <= bnd,
+                  f"{tag} backward: {nm} max|err| {e} > {bnd}")
+            errs.append(e)
+        ms = cuda_ms(lambda: fwd(x, wt, a, b, *args), 10)
+        plain_ms = cuda_ms(lambda: fwd_plain(x, wt, a, b, *args), 5)
+        dev_ms = sum(device_times(lambda: fwd(x, wt, a, b, *args)).values())
+        bms = cuda_ms(lambda: bwd(*bargs), 5)
+        bplain_ms = cuda_ms(lambda: bwd_plain(*bargs), 3)
+        bdev_ms = sum(device_times(lambda: bwd(*bargs)).values())
+        lib_fwd, lib_bwd = lib_operands(gy)
+        lib_ms, blib_ms = cuda_ms(lib_fwd, 10), cuda_ms(lib_bwd, 5)
+        bd = bound(nbytes(x, wt, a, b, y, st), flops)
+        bbd = bound(nbytes(x, wt, a, b, y_p, gy, gs, *got), 2.0 * flops)
+        print(f"phase 3: {tag}: max|err| y {err:.4g} (max {scale:.4g}), "
+              f"backward dx, dW, da, db "
+              f"{', '.join(f'{e:.4g}' for e in errs)}; bit-equal over two "
+              f"launches each; forward kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} "
+              f"ms, bound {bd[0]:.4f} ms ({bd[1]}); backward kernel "
+              f"{bms:.4f} ms (device {bdev_ms:.4f}), plain {bplain_ms:.4f} "
+              f"ms, cuDNN {blib_ms:.4f} ms, bound {bbd[0]:.4f} ms "
+              f"({bbd[1]}) [{card}]", flush=True)
+
+    # Base3D's entry layer of nmode lc: [bv, prev_output, prev_lc, feat]
+    n, c, f, h, w = 128, 4, 32, 64, 80
+    x, wm, a, b = operands((n, c, h * w), (3 * f, c, 3, 3), c, 0.2)
+
+    def conv3d_lib(gy):
+        """cuDNN's conv3d on the [B, C, D, H, W] volume, and its
+        backward."""
+        u = (x.float() * a[None, :, None] + b[None, :, None]).to(bf)
+        u5 = u.reshape(n // 64, 64, c, h, w).transpose(1, 2).contiguous()
+        w5 = wm.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4).contiguous()
+        g5 = gy.reshape(n // 64, 64, f, h, w).transpose(1, 2).contiguous()
+        return (lambda: F.conv3d(u5, w5, padding=1),
+                lambda: _conv_bwd(g5, u5, w5))
+
+    both(f"convbn_block lc entry N={n} C={c} F={f} {h}x{w}", convbn_block,
+         convbn_block_plain, convbn_block_bwd, convbn_block_bwd_plain, x, wm,
+         a, b, False, (64, h, w, False), 2.0 * n * h * w * 3 * f * 9 * c,
+         conv3d_lib)
+    # the encoder's fused chain at 320x256, B=2 x 2 frames
+    for tag, n, c, h2, w2 in (("half", 4, 32, 128, 160),
+                              ("quarter", 4, 64, 64, 80)):
+        x, wt, a, b = operands((n, c, h2, w2), (c, c, 3, 3), c,
+                               (2.0 / (9 * c)) ** 0.5)
+
+        def conv2d_lib(gy, x=x, wt=wt, a=a, b=b):
+            u = (x.float() * a[None, :, None, None]
+                 + b[None, :, None, None]).relu().to(bf)
+            return (lambda: F.conv2d(u, wt, padding=1),
+                    lambda: _conv_bwd(gy, u, wt))
+
+        both(f"convbn2d {tag} N={n} C=F={c} {h2}x{w2}", convbn2d_block,
+             convbn2d_block_plain, convbn2d_block_bwd,
+             convbn2d_block_bwd_plain, x, wt, a, b, True, ("relu",),
+             2.0 * n * h2 * w2 * c * 9 * c, conv2d_lib)
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 11
+
+def make_basement_scene(intr, w: int, h: int, far_wall: float = 16.5,
+                        side_x: float = 10.0, floor_y: float = 1.6):
+    """Ray-cast a basement corridor (a copy of
+    ``benchmarks/uf_convergence.py:make_basement_scene``): far wall, side
+    walls, floor, ceiling and two crates. Returns depth [h, w] in metres."""
+    fx, fy = intr[0, 0], intr[1, 1]
+    cx, cy = intr[0, 2], intr[1, 2]
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    dx = (u - cx) / fx
+    dy = (v - cy) / fy
+    depth = np.full((h, w), far_wall, np.float64)
+    with np.errstate(divide="ignore"):
+        z_side = np.where(np.abs(dx) > 1e-9, side_x / np.abs(dx), np.inf)
+    depth = np.minimum(depth, z_side)
+    with np.errstate(divide="ignore"):
+        z_floor = np.where(dy > 1e-9, floor_y / dy, np.inf)
+        z_ceil = np.where(dy < -1e-9, -1.0 / dy, np.inf)
+    depth = np.minimum(depth, np.minimum(z_floor, z_ceil))
+    for x0, x1, y0, y1, z in ((-1.2, -0.8, 0.6, 1.8, 8.0),
+                              (1.0, 1.4, 0.8, 1.8, 11.0)):
+        px, py = dx * z, dy * z
+        hit = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1) & (depth > z)
+        depth = np.where(hit, z, depth)
+    return depth.astype(np.float32)
+
+
+def _sensor_path(name):
+    return os.path.join(ROOT, "configs", "sensors", name + ".json")
+
+
+def _load_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _quiet(rt):
+    """Hit noise off on a PlannerRuntime's simulated devices."""
+    for lc in (rt.real_lc, rt.algo_lc):
+        for d in (lc.lightcurtain_large, lc.lightcurtain_small):
+            d.hit_noise = 0.0
+    return rt
+
+
+class _Events:
+    """CUDA event pairs around calls of a method, by name."""
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.pairs = {}
+
+    def wrap(self, obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            ev = [self.torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            self.pairs.setdefault(name, []).append(ev)
+            return out
+
+        setattr(obj, attr, timed)
+
+    def ms(self, name):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs.get(name, [])]
+
+
+def phase_lc_server(card):
+    """Phase 11 (a): ``NetRuntime`` with its planner on the real sensor."""
+    import torch
+    from depthestimation_tpu_torch.runtime.net_runtime import NetRuntime
+
+    sensor = _sensor_path("real_sensor")
+    raw = _load_json(sensor)
+    cfg = cfg_for(64, 64, 320, 256, "bfloat16")
+    rt = NetRuntime(cfg, sensor, mode="mono_lc", seed=0, device="cuda",
+                    planner="default")
+    bare = NetRuntime(cfg_for(64, 64, 320, 256, "bfloat16"), sensor,
+                      mode="mono_lc", seed=0, device="cuda")
+    prt = rt.planner_rt
+    prior = prt.final.clone()
+    w, h = rt.size
+    depth = make_basement_scene(np.asarray(raw["intr_rgb"], np.float64), w, h)
+    rng = np.random.default_rng(0)
+    frames = [rng.random((3, h, w), dtype=np.float32) for _ in range(4)]
+    ev = _Events()
+    ev.wrap(prt, "run", "round")
+    ev.wrap(prt, "_plan", "plan")
+    ev.wrap(prt.algo_lc.planner_large, "get_design_points", "dp")
+    ev.wrap(prt, "_sense_sim", "sense")
+    ev.wrap(prt, "integrate", "integrate")
+    want = (1, 0, 8, 0, 0, 0, 0, 0)
+    s_range, e_range = float(raw["s_range"]), float(raw["e_range"])
+    t = {"planner": [], "bare": []}
+    wall = {"planner": [], "bare": []}
+    mask_share = []
+    reset_counts()
+    for i, frame in enumerate(frames):
+        order = ("bare", "planner") if i % 2 == 0 else ("planner", "bare")
+        for k in order:
+            before = launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            if k == "planner":
+                out = rt.process_frame(frame, depth_sense=depth)
+            else:
+                bare.process_frame(frame)
+            end.record()
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t0) * 1e3)
+            t[k].append(start.elapsed_time(end))
+            got = tuple(a - b for a, b in zip(launch_counts(), before))
+            check(got == want, f"frame {i} {k}: launches {got} != {want}")
+        lc_depth, mask = out["lc_depth"], out["lc_mask"]
+        check(bool(torch.isfinite(lc_depth).all()),
+              f"frame {i}: lc_depth not finite")
+        set_ = mask > 0
+        if bool(set_.any()):
+            dd = lc_depth[set_]
+            check(dd.min().item() >= s_range - 1e-3
+                  and dd.max().item() <= e_range + 1e-3,
+                  f"frame {i}: lc_depth [{dd.min().item()}, "
+                  f"{dd.max().item()}] outside [{s_range}, {e_range}]")
+        mask_share.append(set_.float().mean().item())
+        pl = rt.prev_lc
+        check(pl is not None and tuple(pl.shape) == (1, 64, h // 4, w // 4)
+              and bool(torch.isfinite(pl).all()),
+              f"frame {i}: prev_lc {None if pl is None else tuple(pl.shape)}")
+        psum = torch.exp(pl).sum(1)
+        check(bool(torch.allclose(psum, torch.ones_like(psum), atol=1e-3)),
+              f"frame {i}: prev_lc does not normalize")
+    counted = dict(zip(COUNT_NAMES, launch_counts()))
+    rt.reset()
+    check(rt.prev_lc is None and rt.prev_output is None
+          and prt.counter == 0 and torch.equal(prt.final, prior),
+          "reset() left a carry: prev_lc, prev_output or the planner field")
+
+    def med(x):
+        return float(np.median(x))
+
+    split = {k: ev.ms(k) for k in ("round", "plan", "dp", "sense",
+                                   "integrate")}
+    print(f"phase 11a: NetRuntime mono_lc {w}x{h} fd=64 D=64 bf16 "
+          f"planner=default on real_sensor.json, 4 frames of "
+          f"make_basement_scene: launches per frame {want} (both runtimes), "
+          f"over the run {counted}; lc_mask share per frame "
+          f"{[round(x, 4) for x in mask_share]}; prev_lc (1, 64, {h // 4}, "
+          f"{w // 4}) normalizes; reset() clears the carry; ms per frame "
+          f"with the planner {[round(x, 3) for x in t['planner']]} (median "
+          f"{med(t['planner']):.3f}; host wall "
+          f"{[round(x, 3) for x in wall['planner']]}), without "
+          f"{[round(x, 3) for x in t['bare']]} (median {med(t['bare']):.3f};"
+          f" host wall {[round(x, 3) for x in wall['bare']]}); planner "
+          f"round ms {[round(x, 3) for x in split['round']]}: planning "
+          f"{[round(x, 3) for x in split['plan']]} of it the DP "
+          f"{[round(x, 3) for x in split['dp']]}, sensing "
+          f"{[round(x, 3) for x in split['sense']]}, integrating (the "
+          f"network's DPV, then the curtains') "
+          f"{[round(x, 3) for x in split['integrate']]} [{card}]",
+          flush=True)
+    del rt, bare
+    torch.cuda.empty_cache()
+
+
+#: ``benchmarks/uf_convergence.py:138-155``: the deterministic planner
+#: configurations of the convergence ablation, (planner, params, bins)
+UF_RUNS = {
+    "default": ("default", {"step": [0.75], "std_div": 5.0}, 64),
+    "default_128_3modes": ("default", {"step": [0.25, 0.5, 0.75],
+                                       "std_div": 5.0}, 128),
+    "sweep": ("sweep", {"start": 4.0, "end": 17.0, "step": 0.25}, 64),
+    "sweep_sparse4": ("sweep", {"start": 4.0, "end": 17.0, "step": 3.25,
+                                "phases": 5}, 64),
+}
+UF_M1 = ("m1", {"step": 3, "interval": 15, "std_div": 3.0}, 64)
+
+
+def _uf_runtime(planner, params, bins):
+    """``uf_convergence.run_config``'s runtime on basement_sensor.json,
+    on the card, noise off."""
+    from depthestimation_tpu_torch.runtime.planner_runtime import (
+        PlannerRuntime)
+    raw = _load_json(_sensor_path("basement_sensor"))
+    raw["N"] = bins
+    raw.setdefault("beam_width", 0.025)
+    raw.setdefault("beam_divergence", 3.0e-3)
+    raw.setdefault("sin_clip", 0.02)
+    rt = PlannerRuntime(raw, mode="sim", planner=planner, params=params,
+                        device="cuda", seed=0)
+    return _quiet(rt), raw
+
+
+def _uf_curve(rt, depth, rounds=20):
+    """Scores before each round (as ``run_config``) and each round's ms."""
+    import torch
+    scores, ms = [], []
+    for _ in range(rounds):
+        scores.append(rt.score(depth))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rt.run(None, depth)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return scores, ms
+
+
+def phase_uf_convergence(card):
+    """Phase 11 (b): 20 sim rounds of each deterministic configuration of
+    the convergence ablation against ``uf_convergence_curves.json``."""
+    import torch
+    ref = _load_json(os.path.join(ROOT, "benchmarks",
+                                  "uf_convergence_curves.json"))
+    lines = []
+    for name, (planner, params, bins) in UF_RUNS.items():
+        rt, raw = _uf_runtime(planner, params, bins)
+        w, h = raw["size_rgb"]
+        depth = make_basement_scene(np.asarray(raw["intr_rgb"], np.float64),
+                                    w, h)
+        scores, ms = _uf_curve(rt, depth)
+        want = ref[name]
+        check(all(np.isfinite(scores)), f"{name}: scores {scores}")
+        if name == "sweep":
+            rel = [abs(a - b) / b for a, b in zip(scores[1:], want[1:])]
+            check(max(rel) <= 0.02,
+                  f"sweep: curve {scores} vs {want}: rel {max(rel):.4f} "
+                  f"> 2% from round 2 on")
+            how = f"max rel from round 2 {max(rel):.4f}"
+        else:
+            rel = abs(scores[-1] - want[-1]) / want[-1]
+            check(rel <= 0.2, f"{name}: final {scores[-1]:.4f} vs "
+                  f"{want[-1]:.4f}: rel {rel:.4f} > 20%")
+            how = f"final rel {rel:.4f}"
+        lines.append(f"{name} (N={bins}) {[round(s, 4) for s in scores]} "
+                     f"vs the file's final {want[-1]}: {how}; ms per round "
+                     f"median {float(np.median(ms)):.3f} "
+                     f"(first {ms[0]:.3f})")
+        del rt
+        torch.cuda.empty_cache()
+    planner, params, bins = UF_M1
+    rt, raw = _uf_runtime(planner, params, bins)
+    w, h = raw["size_rgb"]
+    depth = make_basement_scene(np.asarray(raw["intr_rgb"], np.float64), w, h)
+    scores, ms = _uf_curve(rt, depth)
+    check(all(np.isfinite(scores)), f"m1: scores {scores}")
+    lines.append(f"m1 (N={bins}, the port's generator, seed 0, unbound) "
+                 f"{[round(s, 4) for s in scores]}; the file's seed-0 JAX "
+                 f"final {ref['m1'][-1]}; ms per round median "
+                 f"{float(np.median(ms)):.3f}")
+    print(f"phase 11b: PlannerRuntime sim on basement_sensor.json "
+          f"{w}x{h}, noise off, 20 rounds scored before each: "
+          + "; ".join(lines) + f" [{card}]", flush=True)
+
+
+class _SerialDevice:
+    """A serial curtain device with a fixed exposure: ``send`` starts one,
+    ``recv`` waits until it has lasted ``exposure_s`` and hands back the
+    return of the true LC-frame depth as host arrays (the device's own
+    work, the same in both loops)."""
+
+    def __init__(self, lcdev, depth_lc, exposure_s=0.005):
+        self.lcdev, self.depth_lc = lcdev, depth_lc
+        self.exposure_s = exposure_s
+        self.t_send = self.path = None
+
+    def send(self, path):
+        self.t_send, self.path = time.perf_counter(), path
+
+    def recv(self):
+        import torch
+        time.sleep(max(0.0, self.t_send + self.exposure_s
+                       - time.perf_counter()))
+        out, thick = self.lcdev.get_return(
+            self.depth_lc, torch.as_tensor(self.path,
+                                           device=self.depth_lc.device))
+        return out.cpu().numpy(), thick.cpu().numpy()
+
+    def sense(self, path):
+        self.send(path)
+        return self.recv()
+
+
+def phase_pipelined(card):
+    """Phase 11 (c): the real path against a serial device with a 5 ms
+    exposure, pipelined (send / receive) and not (``sense_fn``)."""
+    import torch
+    from depthestimation_tpu_torch.runtime.planner_runtime import (
+        PlannerRuntime)
+    sensor = _sensor_path("real_sensor")
+    raw = _load_json(sensor)
+    params = {"step": [0.75], "std_div": 5.0}
+    probe = PlannerRuntime(raw, device="cuda")
+    w, h = raw["size_rgb"]
+    depth = make_basement_scene(np.asarray(raw["intr_rgb"], np.float64), w, h)
+    dev = _SerialDevice(probe.real_lc.lightcurtain_large,
+                        probe._depth_lc(depth))
+    runs = {"pipelined": dict(send_fn=dev.send, recv_fn=dev.recv),
+            "sense_fn": dict(sense_fn=dev.sense)}
+    rts, dpvs, ms = {}, {}, {}
+    for k, fns in runs.items():
+        rts[k] = PlannerRuntime(raw, mode="real", planner="default",
+                                params=params, device="cuda", **fns)
+        dpvs[k], ms[k] = [], []
+        real = rts[k]._measurement_dpv
+
+        def keep(*a, _real=real, _k=k):
+            out = _real(*a)
+            dpvs[_k].append(out)
+            return out
+
+        rts[k]._measurement_dpv = keep
+    for k in runs:                  # one untimed round each (first use)
+        rts[k].run(None)
+    for i in range(4):              # in turns, each side first as often
+        for k in (("pipelined", "sense_fn") if i % 2 == 0
+                  else ("sense_fn", "pipelined")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rts[k].run(None)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    check(len(dpvs["pipelined"]) == len(dpvs["sense_fn"]) == 15,
+          f"measurements {len(dpvs['pipelined'])}, "
+          f"{len(dpvs['sense_fn'])}: 3 curtains a round")
+    same = all(torch.equal(a, b) for a, b in zip(dpvs["pipelined"],
+                                                 dpvs["sense_fn"]))
+    check(same and torch.equal(rts["pipelined"].final,
+                               rts["sense_fn"].final),
+          "the pipelined and unpipelined rounds' measurement DPVs differ")
+    print(f"phase 11c: the real path on real_sensor.json against a serial "
+          f"device (5 ms exposure a curtain, 3 curtains a round, "
+          f"default planner), after one untimed round each: round wall ms "
+          f"pipelined (send_fn / recv_fn) "
+          f"{[round(x, 3) for x in ms['pipelined']]} (median "
+          f"{float(np.median(ms['pipelined'])):.3f}), unpipelined "
+          f"(sense_fn) {[round(x, 3) for x in ms['sense_fn']]} (median "
+          f"{float(np.median(ms['sense_fn'])):.3f}); the 15 measurement "
+          f"DPVs and the fields equal [{card}]", flush=True)
+    del rts, probe
+    torch.cuda.empty_cache()
+
+
+def _synthetic_lc_sensor(w, h, n):
+    """The synthetic camera (``_sensor``) as a light-curtain bundle: the
+    frame the synthetic sweep is recorded in."""
+    s = _sensor(w, h, n)
+    s.update({"name": "synthetic_camera", "unc_shift": 1.0,
+              "unc_span": 0.3, "unc_ang": 0, "laser_fov": 40.0,
+              "laser_timestep": 3.5e-5, "expand_A": n, "expand_B": n})
+    s["e_range"], s["s_range"] = 18.0, 3.0
+    return s
+
+
+def _sweep_dataset(w, h, ndepth, d_min, d_max, traj_len):
+    """``SyntheticSweepVideoDataset`` (2 trajectories of ``traj_len``
+    frames, 128 planes) at w x h. Its block-depth map tiles w // 6
+    columns (the JAX dataset renders only widths that 6 divides): at 320
+    each scene's map is padded by its last column."""
+    from depthestimation_tpu_torch.data.video_synthetic import (
+        SyntheticSweepVideoDataset)
+    ds = SyntheticSweepVideoDataset(n_traj=2, traj_len=traj_len, h=h, w=w,
+                                    ndepth=ndepth, d_min=d_min, d_max=d_max,
+                                    planes=128)
+    ds.scenes = [(np.pad(d, ((0, 0), (0, w - d.shape[1])), mode="edge"), t)
+                 for d, t in ds.scenes]
+    return ds
+
+
+def _counted_steps(tdefault, steps):
+    """``make_train_step`` wrapped: each step's launches and events."""
+    import torch
+    real_make = tdefault.make_train_step
+
+    def counted_make(loss_fn, lc_fn=None):
+        step = real_make(loss_fn, lc_fn=lc_fn)
+
+        def run(*a):
+            before = launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(*a)
+            ev[1].record()
+            steps.append((tuple(x - y for x, y in
+                                zip(launch_counts(), before)), ev))
+            return out
+        return run
+    return real_make, counted_make
+
+
+def phase_lc_real_train(card):
+    """Phase 11 (d): ``DefaultTrainer`` on a bf16 copy of
+    ``configs/default_318_lc_sweep.json`` with the recorded-sweep fusion."""
+    import torch
+    from depthestimation_tpu_torch.config import load_config
+    from depthestimation_tpu_torch.data.scheduler import BatchScheduler
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.trainer import default as tdefault
+    from depthestimation_tpu_torch.trainer.factory import get_trainer
+    from depthestimation_tpu_torch.utils.logger import init_logger
+
+    work = os.path.join(ROOT, "build", "phase11")
+    os.makedirs(work, exist_ok=True)
+    raw = _load_json(os.path.join(ROOT, "configs",
+                                  "default_318_lc_sweep.json"))
+    w, h = raw["var"]["img_size"]
+    bundle = os.path.join(work, "synthetic_camera.json")
+    with open(bundle, "w") as f:
+        json.dump(_synthetic_lc_sensor(w, h, 128), f)
+    raw["lc"].update(enabled=True, algo_lc_config=bundle,
+                     real_lc_config=bundle)
+    raw["train"].update(batch_size=2, epoch_num=1, print_freq=1)
+    raw["tpu"] = {"dtype": "bfloat16"}
+    path = os.path.join(work, "default_318_lc_sweep_bf16.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    cfg = load_config(path)
+    d = int(cfg.var.ndepth)
+    # one frame: the config's self_recurse (2) makes it 2 steps, the
+    # second fed the first's prev_lc
+    ds = _sweep_dataset(w, h, d, cfg.var.d_min, cfg.var.d_max, 1)
+    loader = BatchScheduler(ds, 2, shuffle=False, prefetch=False)
+    base = get_model(cfg, "cuda", seed=0)
+    model = get_model(cfg, "cuda")
+    model.load_state_dict(base.state_dict())
+    tr = get_trainer(cfg)(0, model, get_loss(cfg),
+                          init_logger("phase11d", work), work, cfg, loader,
+                          loader)
+    calls = []
+    real_fn, sim_fn = tdefault.lc_process_real, tdefault.lc_process
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            calls.append((kind, ev, out))
+            return out
+        return run
+
+    steps = []
+    real_make, counted_make = _counted_steps(tdefault, steps)
+    tdefault.make_train_step = counted_make
+    tdefault.lc_process_real = timed("real", real_fn)
+    tdefault.lc_process = timed("sim", sim_fn)
+    want = (0, 0, 16, 16, 76, 76, 0, 0)
+    try:
+        reset_counts()
+        tr._run_one_epoch()
+        counted = dict(zip(COUNT_NAMES, launch_counts()))
+    finally:
+        tdefault.make_train_step = real_make
+        tdefault.lc_process_real, tdefault.lc_process = real_fn, sim_fn
+    check(tr.real_lc is not None and tr._fused_lc_fn() is None,
+          "the real device was not built, or the LC loop stayed in the step")
+    check(len(steps) == 2 and all(s[0] == want for s in steps),
+          f"launches per step {[s[0] for s in steps]} != {want}")
+    check([c[0] for c in calls] == ["real"] * 4,
+          f"LC calls {[c[0] for c in calls]}: every one must sample the "
+          "recorded sweep")
+    losses = tr._last_epoch_losses
+    check(len(losses) == 1 and all(np.isfinite(losses)),
+          f"losses {losses}: one frame")
+    # each call's fused DPV, the next step's prev_lc at every 4th pixel
+    for _, _, out in calls:
+        check(tuple(out.shape) == (2, d, h, w)
+              and bool(torch.isfinite(out).all()),
+              f"lc_process_real output {tuple(out.shape)} not finite")
+    # rule 4: one step's gradients against an f32 plain step
+    batch = next(iter(loader.enumerate()))
+    _, mi, gt = tr._side_inputs(batch, "left")
+    gt = tr._with_soft_labels(gt)
+    cfg32 = load_config(path)
+    cfg32["tpu"] = {"dtype": "float32"}
+    dists, _ = rule4_step(cfg, cfg32, real_make(get_loss(cfg)), mi, gt,
+                          base, "lc real B=2", want)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for _, (a, b) in steps]
+    lc_ms = [a.elapsed_time(b) for _, (a, b), _ in calls]
+    rule4_txt = "; ".join(f"{k} {dists['kernel'][k]:.4g}, "
+                          f"{dists['plain'][k]:.4g}"
+                          for k in dists["kernel"])
+    print(f"phase 11d: DefaultTrainer nmode lc {w}x{h} fd=64 D={d} bf16 B=2 "
+          f"(default_318_lc_sweep.json, lc on, 128-plane synthetic sweeps, "
+          f"the curtains on the synthetic camera's bundle), one frame of "
+          f"self_recurse 2: the frame's loss {losses[0]:.5f}; launches per "
+          f"step {want}, over the run {counted}; 4 LC calls, all "
+          f"lc_process_real, their fused DPVs finite; rel dist from the "
+          f"f32 step (kernel, plain): {rule4_txt}; step ms "
+          f"{[round(x, 3) for x in step_ms]}, lc_process_real ms "
+          f"{[round(x, 3) for x in lc_ms]} [{card}]", flush=True)
+    del tr, model, base
+    torch.cuda.empty_cache()
+    return counted
+
+
+def phase_sweep_train(card):
+    """Phase 11 (e): ``SweepTrainer`` on ``configs/sweep_model.json``."""
+    import torch
+    from depthestimation_tpu_torch.config import load_config
+    from depthestimation_tpu_torch.data.scheduler import BatchScheduler
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.trainer import default as tdefault
+    from depthestimation_tpu_torch.trainer.factory import get_trainer
+    from depthestimation_tpu_torch.utils.logger import init_logger
+
+    work = os.path.join(ROOT, "build", "phase11")
+    os.makedirs(work, exist_ok=True)
+    cfg = load_config(os.path.join(ROOT, "configs", "sweep_model.json"))
+    cfg.train.batch_size = 2
+    w, h = cfg.var.crop_w, cfg.var.img_size[1]
+    ds = _sweep_dataset(w, h, cfg.var.ndepth, cfg.var.d_min, cfg.var.d_max,
+                        2)
+    loader = BatchScheduler(ds, 2, shuffle=False, prefetch=False)
+    tr = get_trainer(cfg)(0, get_model(cfg, "cuda", seed=0), get_loss(cfg),
+                          init_logger("phase11e", work), work, cfg, loader,
+                          loader)
+    steps = []
+    real_make, counted_make = _counted_steps(tdefault, steps)
+    tdefault.make_train_step = counted_make
+    try:
+        reset_counts()
+        tr._run_one_epoch()
+        counted = dict(zip(COUNT_NAMES, launch_counts()))
+        err, keys = tr._validate_with_gt()
+    finally:
+        tdefault.make_train_step = real_make
+    losses = tr._last_epoch_losses
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"sweep losses {losses}")
+    check(keys == ["peak_int_err"] and np.isfinite(err[0]),
+          f"sweep validation {keys} {err}")
+    check(all(v == 0 for v in counted.values()),
+          f"the sweep model launched a kernel of the port: {counted}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for _, (a, b) in steps]
+    print(f"phase 11e: SweepTrainer sweep_model.json {w}x{h} f32 B=2 on "
+          f"128-plane synthetic sweeps: losses "
+          f"{[round(x, 5) for x in losses]}, validation peak_int_err "
+          f"{err[0]:.5f}; step ms {[round(x, 3) for x in step_ms]}; kernel "
+          f"launches {counted} (every conv is PyTorch's f32) [{card}]",
+          flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1900,6 +2607,7 @@ def main() -> int:
               flush=True)
         rows = phase_kernels(card)
         rows.update(phase_kernels_flow(card))
+        phase_kernels_lc(card)
         phase_server(card)
         phase_flagship(card)
         launches = phase_train(card)
@@ -1907,6 +2615,11 @@ def main() -> int:
         lc_launches = phase_lc_train(card)
         flow_launches = phase_flow(card)
         phase_trainer(card)
+        phase_lc_server(card)
+        phase_uf_convergence(card)
+        phase_pipelined(card)
+        phase_lc_real_train(card)
+        phase_sweep_train(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

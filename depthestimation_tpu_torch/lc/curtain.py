@@ -195,82 +195,106 @@ class LightCurtain:
 
     # -- planners ----------------------------------------------------------
 
+    @staticmethod
+    def _solve(planner: PlannerRT, fields, yield_mode: bool):
+        """The design points of a generator of fields: one batched pass
+        over all of them, or with ``yield_mode`` a generator that solves
+        each field as it is asked for."""
+        if yield_mode:
+            return (planner.get_design_points(f) for f in fields)
+        return planner.get_design_points(torch.stack(list(fields), dim=-3))
+
     def plan_default(self, field, planner: PlannerRT, fw: FieldWarp, kw: str,
-                     cfg: dict):
+                     cfg: dict, yield_mode: bool = False):
         """field [..., D, W] -> [..., 1 + 2 * len(step), C, 2] design
         points: the prepared field, then per ``step`` value the inverted
         curves left and right of each ray's peak, all solved in one batched
-        pass."""
-        _, field_range = self._prepare_field(field, fw, kw)
-        fr = _fix_sides(field_range)
-        fields = [fr]
-        idx = fr.argmax(dim=-2, keepdim=True)                  # [..., 1, C]
-        rows = torch.arange(fr.shape[-2], device=fr.device)[:, None]
-        left = torch.where(rows < idx, 1.0, fr)
-        right = torch.where(rows >= idx, 1.0, fr)
-        for pval in cfg["step"]:
-            fields.append(invert_curve(left, pval))
-            fields.append(invert_curve(right, pval))
-        return planner.get_design_points(torch.stack(fields, dim=-3))
+        pass. ``yield_mode`` returns a generator of the same paths, one DP
+        solve each, so a real device can expose curtain i while path i+1
+        is planned."""
+        def fields():
+            _, field_range = self._prepare_field(field, fw, kw)
+            fr = _fix_sides(field_range)
+            yield fr
+            idx = fr.argmax(dim=-2, keepdim=True)              # [..., 1, C]
+            rows = torch.arange(fr.shape[-2], device=fr.device)[:, None]
+            left = torch.where(rows < idx, 1.0, fr)
+            right = torch.where(rows >= idx, 1.0, fr)
+            for pval in cfg["step"]:
+                yield invert_curve(left, pval)
+                yield invert_curve(right, pval)
+
+        return self._solve(planner, fields(), yield_mode)
 
     def plan_m1(self, field, planner: PlannerRT, fw: FieldWarp, kw: str,
                 cfg: dict, generator: torch.Generator | None = None,
-                sampled: torch.Tensor | None = None):
+                sampled: torch.Tensor | None = None,
+                yield_mode: bool = False):
         """Sampling planner: field [..., D, W] -> [..., 1 + step, C, 2].
         Each of the ``step`` curtains follows one range bin per ray drawn
         from the ORIGINAL field (independent draws), rasterized into a
         Gaussian-blurred attraction field. ``generator`` (on the device;
         None: one seeded with 0) draws them; ``sampled`` [..., step, C]
-        feeds the indices in instead (the tests' seam)."""
-        _, field_range = self._prepare_field(field, fw, kw, normalize=False)
-        fr = _fix_sides(field_range)
-        fields = [fr]
-        r_bins, c_bins = fr.shape[-2:]
-        interval = int(cfg.get("interval", 1))
-        base = torch.nan_to_num(fr, nan=1e-5)
-        rows = torch.arange(r_bins, dtype=torch.float32,
-                            device=fr.device)[:, None]
-        cols = torch.arange(c_bins, dtype=torch.float32, device=fr.device)
-        ctrl_cols = torch.arange(0, c_bins, interval, device=fr.device)
-        sig = float(cfg.get("sigma", math.sqrt(3.0)))
-        s2 = sig * math.sqrt(2.0)
-        if sampled is None and generator is None:
-            generator = torch.Generator(device=fr.device).manual_seed(0)
-        for i in range(int(cfg["step"])):
-            if sampled is None:
-                probs = torch.clamp(base.transpose(-1, -2), min=1e-12)
-                drawn = torch.multinomial(probs.reshape(-1, r_bins), 1,
-                                          generator=generator)
-                drawn = drawn.reshape(probs.shape[:-1])
-            else:
-                drawn = torch.as_tensor(sampled, device=fr.device)[..., i, :]
-            curve = interp(cols, ctrl_cols.to(torch.float32),
-                           drawn[..., ctrl_cols].to(torch.float32))
-            # per column the drawn segment spans the rows between the
-            # entering and leaving midpoints; box x Gaussian = an erf pair
-            y_prev = torch.cat([curve[..., :1], curve[..., :-1]], dim=-1)
-            y_next = torch.cat([curve[..., 1:], curve[..., -1:]], dim=-1)
-            y_in, y_out = 0.5 * (y_prev + curve), 0.5 * (curve + y_next)
-            lo = torch.minimum(torch.minimum(y_in, y_out), curve)
-            hi = torch.maximum(torch.maximum(y_in, y_out), curve)
-            attract = 0.5 * (
-                torch.erf((rows - lo[..., None, :] + 0.5) / s2)
-                - torch.erf((rows - hi[..., None, :] - 0.5) / s2))
-            attract = _gaussian_blur_1d(attract, sig)
-            attract = attract / attract.sum(dim=-2, keepdim=True)
-            mult = base * attract
-            fields.append(torch.nan_to_num(
-                mult / mult.sum(dim=-2, keepdim=True)))
-        return planner.get_design_points(torch.stack(fields, dim=-3))
+        feeds the indices in instead (the tests' seam). ``yield_mode`` as
+        ``plan_default``: path i draws when it is asked for, so the draws
+        are the batched pass's."""
+        def fields(generator):
+            _, field_range = self._prepare_field(field, fw, kw,
+                                                 normalize=False)
+            fr = _fix_sides(field_range)
+            yield fr
+            r_bins, c_bins = fr.shape[-2:]
+            interval = int(cfg.get("interval", 1))
+            base = torch.nan_to_num(fr, nan=1e-5)
+            rows = torch.arange(r_bins, dtype=torch.float32,
+                                device=fr.device)[:, None]
+            cols = torch.arange(c_bins, dtype=torch.float32, device=fr.device)
+            ctrl_cols = torch.arange(0, c_bins, interval, device=fr.device)
+            sig = float(cfg.get("sigma", math.sqrt(3.0)))
+            s2 = sig * math.sqrt(2.0)
+            if sampled is None and generator is None:
+                generator = torch.Generator(device=fr.device).manual_seed(0)
+            for i in range(int(cfg["step"])):
+                if sampled is None:
+                    probs = torch.clamp(base.transpose(-1, -2), min=1e-12)
+                    drawn = torch.multinomial(probs.reshape(-1, r_bins), 1,
+                                              generator=generator)
+                    drawn = drawn.reshape(probs.shape[:-1])
+                else:
+                    drawn = torch.as_tensor(sampled,
+                                            device=fr.device)[..., i, :]
+                curve = interp(cols, ctrl_cols.to(torch.float32),
+                               drawn[..., ctrl_cols].to(torch.float32))
+                # per column the drawn segment spans the rows between the
+                # entering and leaving midpoints; box x Gaussian = an erf
+                # pair
+                y_prev = torch.cat([curve[..., :1], curve[..., :-1]], dim=-1)
+                y_next = torch.cat([curve[..., 1:], curve[..., -1:]], dim=-1)
+                y_in, y_out = 0.5 * (y_prev + curve), 0.5 * (curve + y_next)
+                lo = torch.minimum(torch.minimum(y_in, y_out), curve)
+                hi = torch.maximum(torch.maximum(y_in, y_out), curve)
+                attract = 0.5 * (
+                    torch.erf((rows - lo[..., None, :] + 0.5) / s2)
+                    - torch.erf((rows - hi[..., None, :] - 0.5) / s2))
+                attract = _gaussian_blur_1d(attract, sig)
+                attract = attract / attract.sum(dim=-2, keepdim=True)
+                mult = base * attract
+                yield torch.nan_to_num(mult / mult.sum(dim=-2, keepdim=True))
 
-    def plan_sweep(self, field, planner, fw, kw: str, cfg: dict):
+        return self._solve(planner, fields(generator), yield_mode)
+
+    def plan_sweep(self, field, planner, fw, kw: str, cfg: dict,
+                   yield_mode: bool = False):
         """Flat curtains z = start : step : end (+ ``offset``): [n, 2000,
-        2], the same for every item."""
+        2], the same for every item (``yield_mode``: a generator of the n
+        paths)."""
         zs = np.arange(cfg["start"], cfg["end"], cfg["step"]) \
             + float(cfg.get("offset", 0.0))
         xs = np.arange(-10.0, 10.0, 0.01, dtype=np.float32)
-        paths = np.stack([np.stack([xs, np.full_like(xs, z)], -1) for z in zs])
-        return torch.as_tensor(paths, dtype=torch.float32, device=self.device)
+        paths = torch.as_tensor(
+            np.stack([np.stack([xs, np.full_like(xs, z)], -1) for z in zs]),
+            dtype=torch.float32, device=self.device)
+        return iter(paths) if yield_mode else paths
 
     def plan_empty(self, field, planner, fw, kw: str, cfg: dict):
         _, field_range = self._prepare_field(field, fw, kw)
@@ -380,17 +404,22 @@ class LightCurtain:
 
     @staticmethod
     def _masked(sensed_arr):
-        depth_s = sensed_arr[0]
+        depth_s = sensed_arr[..., 0, :, :]
         mask = (depth_s > 0).to(torch.float32)
-        return depth_s, sensed_arr[1] * mask, sensed_arr[2] * mask
+        return (depth_s, sensed_arr[..., 1, :, :] * mask,
+                sensed_arr[..., 2, :, :] * mask)
 
     def gen_lc_dpv_approx(self, sensed_arr, std_div: float):
+        """sensed_arr [..., 3, H, W] = (depth, intensity, thickness) ->
+        measurement DPV [..., D, H, W] of the approximate model."""
         depth_s, int_s, thick_s = self._masked(sensed_arr)
         a = intensity_to_confidence(int_s / 255.0)
         unc = (thick_s / std_div) ** 2
         return mixed_model(self.d_candi, depth_s, unc, a, 1.0 - a)
 
     def gen_lc_dpv_true(self, sensed_arr, std_div: float, peak_img=None):
+        """sensed_arr [..., 3, H, W] -> measurement DPV [..., D, H, W] of
+        the probabilistic curtain model (``lc_intensities_to_dist``)."""
         depth_s, int_s, thick_s = self._masked(sensed_arr)
         peak = (torch.as_tensor(peak_img, dtype=torch.float32,
                                 device=depth_s.device)[..., None]
@@ -400,4 +429,4 @@ class LightCurtain:
         _, dpv = lc_intensities_to_dist(
             self.d_candi, depth_s[..., None], (int_s / 255.0)[..., None],
             (thick_s / std_div)[..., None], 0.1, peak)
-        return torch.movedim(dpv, -1, 0)
+        return torch.movedim(dpv, -1, -3)

@@ -15,6 +15,6 @@ def get_loss(cfg, id: int = 0):
         from depthestimation_tpu_torch.losses.flow_loss import UnFlowLoss
         return UnFlowLoss(cfg, id)
     if name == "sweep":
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP.md, queue 1)")
+        from depthestimation_tpu_torch.losses.sweep_loss import SweepLoss
+        return SweepLoss(cfg, id)
     raise ValueError(f"unknown loss {name!r}")

@@ -1,8 +1,12 @@
 """BaseModelNet: the recursive DPV network, eval and train forward.
 
-Port of ``depthestimation_tpu/models/base_model.py`` for nmodes ``exp7``
-and ``exp7_lc``: encoder -> decomposed plane sweep + diagonal feature warp
--> BV head -> Base3D over [bv, prev_output, (prev_lc), warped] -> decoder.
+Port of ``depthestimation_tpu/models/base_model.py`` for nmodes ``exp7``,
+``exp7_lc`` and ``lc``: encoder -> decomposed plane sweep + diagonal
+feature warp -> BV head -> Base3D over [bv, prev_output, (prev_lc),
+warped] -> decoder. nmode ``lc`` runs Base3D over four planes instead,
+[bv, prev_output, prev_lc, the reference frame's features] (the features
+need ``feature_dim == ndepth``), with ``diffhomo: false`` (every config
+of it): no sweep and no warp.
 Layouts follow the JAX package: ``rgb [B, T, 3, H, W]`` in, DPVs
 ``[B, D, h, w]`` out. ``.train()`` selects the train-mode forward: the
 only difference is the random ``prev_lc`` drop (``_drop_prev_lc``), whose
@@ -60,7 +64,7 @@ from depthestimation_tpu_torch.ops.plane_sweep import (
     plane_sweep_and_warp_batched, warp_feature_volume_batched)
 from depthestimation_tpu_torch.utils import precision
 
-NMODES = ("exp7", "exp7_lc")
+NMODES = ("exp7", "exp7_lc", "lc")
 _SWEEP_DTYPES = {"auto": "auto", "float32": torch.float32,
                  "bfloat16": torch.bfloat16}
 
@@ -81,6 +85,11 @@ class BaseModelNet(nn.Module):
             raise NotImplementedError(
                 f"nmode {nmode!r} is not ported yet: the port runs "
                 f"{NMODES} (see ROADMAP.md, queue 1)")
+        if nmode == "lc" and diffhomo:
+            raise NotImplementedError(
+                "nmode 'lc' with var.diffhomo true needs the cost volume "
+                "alone, which is not ported yet (ROADMAP.md, queue 1: "
+                "\"Other nmodes\"); its configs set diffhomo false")
         if sweep_dtype not in _SWEEP_DTYPES:
             raise ValueError(f"sweep_dtype {sweep_dtype!r} is not one of "
                              f"{tuple(_SWEEP_DTYPES)}")
@@ -106,7 +115,7 @@ class BaseModelNet(nn.Module):
                           dtype=dtype)
         self.conv0_1 = Conv(d, d, 3, 1, 1, dtype=dtype)
         self.conv0_2 = Conv(d, d, 3, 1, 1, dtype=dtype)
-        in_ch = 2 + (nmode == "exp7_lc") + n_views
+        in_ch = 4 if nmode == "lc" else 2 + (nmode == "exp7_lc") + n_views
         self.based_3d = Base3D(in_ch, d, feature_dim=32, dres_count=2,
                                bn_avg=bn_avg, dtype=dtype,
                                convcomb=self._resolved_convcomb_pallas(),
@@ -175,7 +184,8 @@ class BaseModelNet(nn.Module):
 
     def _prev_or_uniform(self, prev, like, log: bool):
         """prev (log DPV [B, D, h, w]) or the t=0 default: LOG-uniform for
-        exp7_lc, PROBABILITY-uniform for exp7 (``base_model.py:421-429``)."""
+        exp7_lc and lc, PROBABILITY-uniform for exp7
+        (``base_model.py:421-429``)."""
         if prev is None:
             fill = torch.log(torch.tensor(1.0 / self.d)) if log \
                 else 1.0 / self.d
@@ -203,7 +213,8 @@ class BaseModelNet(nn.Module):
     def forward(self, model_input: dict,
                 generator: torch.Generator | None = None) -> dict:
         """Eval or train forward (``self.training``). ``generator`` feeds
-        the train-mode ``prev_lc`` drop of exp7_lc; nothing else draws."""
+        the train-mode ``prev_lc`` drop of exp7_lc and lc; nothing else
+        draws."""
         with precision.no_tf32():
             return self._forward(model_input, generator)
 
@@ -212,7 +223,9 @@ class BaseModelNet(nn.Module):
         feat1, feat_raw, feat_all = self._encode(rgb)
         d_candi = torch.as_tensor(model_input["d_candi"],
                                   dtype=torch.float32, device=rgb.device)
-        if self.diffhomo:
+        if self.nmode == "lc":
+            cost, warped = feat_all[:, -1, :-3], None
+        elif self.diffhomo:
             cost, warped = plane_sweep_and_warp_batched(
                 feat_all, feat_raw, d_candi, model_input["src_cam_poses"],
                 model_input["intrinsics"], self.sigma_soft_max,
@@ -226,12 +239,15 @@ class BaseModelNet(nn.Module):
 
         feats_dec = [feat_all[:, -1, :-3], feat1[:, -1], rgb[:, -1]]
         prev_output = self._prev_or_uniform(
-            model_input.get("prev_output"), bv, log=self.nmode == "exp7_lc")
+            model_input.get("prev_output"), bv, log=self.nmode != "exp7")
         planes = [bv[:, None], prev_output[:, None]]
-        if self.nmode == "exp7_lc":
+        if self.nmode != "exp7":
             planes.append(self._drop_prev_lc(
                 model_input.get("prev_lc"), bv, generator)[:, None])
-        planes.append(warped)
+        if self.nmode == "lc":
+            planes.append(feat_all[:, -1, None, :-3])
+        else:
+            planes.append(warped)
         vol = torch.cat(planes, dim=1)                   # [B, C, D, h, w]
         resi = self.based_3d(vol, self.use_kernels)
         bv_upd = torch.log_softmax(bv + resi, dim=1)

@@ -7,6 +7,7 @@ import torch
 from depthestimation_tpu_torch.models import pwclite
 from depthestimation_tpu_torch.models.base_model import BaseModelNet
 from depthestimation_tpu_torch.models.layers import init_weights
+from depthestimation_tpu_torch.models.sweep import SweepModel
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -24,7 +25,9 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
 
     ``"pwclite"`` is ``PWCLite()`` with its defaults, as in JAX (2 frames,
     the reduced estimator, search range 4, output level 4, f32; its
-    ``use_kernels`` routes the correlation).
+    ``use_kernels`` routes the correlation); ``"sweep"`` is
+    ``SweepModel()`` with its defaults, as in JAX (feature_dim 32, batch
+    statistics, f32).
 
     The compute dtype is ``tpu.dtype``; ``tpu.convbn2d``,
     ``tpu.convcomb_pallas`` and ``tpu.combine_pallas`` (each "auto" by
@@ -44,6 +47,11 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
         if seed is not None:
             pwclite.init_weights(model,
                                  torch.Generator().manual_seed(int(seed)))
+        return model.to(device).eval()
+    if name == "sweep":
+        model = SweepModel()
+        if seed is not None:
+            init_weights(model, torch.Generator().manual_seed(int(seed)))
         return model.to(device).eval()
     if name != "base":
         raise NotImplementedError(

@@ -10,9 +10,10 @@ depth, the refined DPV, the uncertainty field and the low-res DPV.
 Weights come from a ``state_dict`` (for example
 ``weights.from_jax_params`` of a JAX checkpoint's variables), from the
 ``{exp}_model_best`` checkpoint the depth trainer wrote under
-``save_root``, or from a seeded init. The in-process light-curtain
-planner (``prev_lc`` feedback) waits for the LC serving slice (ROADMAP.md,
-queue 1 item 4).
+``save_root``, or from a seeded init. With ``planner`` an in-process
+``PlannerRuntime`` (sim mode, on the same device) fuses each frame's
+refined DPV with simulated curtains of ``depth_sense``; its fused field
+feeds back into the next frame as ``prev_lc``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from depthestimation_tpu_torch.models import get_model
 from depthestimation_tpu_torch.ops import dpv as dpv_ops
 from depthestimation_tpu_torch.ops import geometry
 from depthestimation_tpu_torch.ops.ufield import UFieldParams, gen_ufield
-from depthestimation_tpu_torch.runtime.planner_runtime import process_lc_json
+from depthestimation_tpu_torch.runtime.planner_runtime import (
+    PlannerRuntime, process_lc_json)
 from depthestimation_tpu_torch.trainer.checkpoint import load_checkpoint
 
 #: deployment mode -> model nmode + stereo flag
@@ -55,11 +57,17 @@ class NetRuntime:
       device: where the model and every per-frame tensor live: the card
         unless the caller names the CPU (without a card the default
         raises).
+      planner: optional planner name ("default", "m1", "sweep"): runs the
+        in-process sense-plan-integrate loop whose fused field feeds
+        ``prev_lc``; ``planner_params`` its parameters (default
+        ``{"step": [0.5], "std_div": 5.0}``).
     """
 
     def __init__(self, cfg, sensor_json, mode: str = "mono",
                  state_dict=None, seed: int = 0, device="cuda",
-                 save_root: str | None = None):
+                 save_root: str | None = None,
+                 planner: str | None = None,
+                 planner_params: dict | None = None):
         spec = MODES[mode]
         self.mode = mode
         self.stereo = spec["stereo"]
@@ -89,6 +97,12 @@ class NetRuntime:
         self.prev_output = None
         self.prev_lc = None
         self._frames: deque = deque(maxlen=self.n_views)
+        self.planner_rt = None
+        if planner is not None:
+            self.planner_rt = PlannerRuntime(
+                raw, mode="sim", planner=planner,
+                params=planner_params or {"step": [0.5], "std_div": 5.0},
+                device=self.device)
 
     # -- static model datum -------------------------------------------------
 
@@ -169,18 +183,33 @@ class NetRuntime:
                            self.uf_params, log=True)
         return dpv_refined, low, prev_output, depth, uf
 
+    def _lc_feedback(self, final, low):
+        """The planner's fused log field [1, N, H, W] -> ``prev_lc`` [1, D,
+        h, w]: the depth axis back to D bins, then a linear resize to the
+        low-res grid, renormalized."""
+        fused = dpv_ops.upsample_dpv(torch.exp(final), low.shape[0],
+                                     log=False)
+        fused = dpv_ops.resize_linear(fused, low.shape[-2:])
+        fused = fused / fused.sum(dim=1, keepdim=True)
+        return torch.log(torch.clamp(fused, 1e-16, 1.0))
+
     # -- the per-message handler --------------------------------------------
 
-    def process_frame(self, rgb, rgb_other=None, rel_pose=None):
+    def process_frame(self, rgb, rgb_other=None, rel_pose=None,
+                      depth_sense=None):
         """One inference step.
 
         Args:
           rgb: [3, H, W] newest frame (reference view).
           rgb_other: stereo partner frame (stereo modes).
           rel_pose: src<-ref inter-frame pose (mono modes; default identity).
+          depth_sense: true depth [H, W] for the simulated curtains when a
+            planner runs.
 
         Returns dict of tensors on the runtime's device: depth [H, W],
-        dpv_refined [D, H, W] (log), uf [D, W], dpv_low [D, h, w] (log).
+        dpv_refined [D, H, W] (log), uf [D, W], dpv_low [D, h, w] (log),
+        and when a planner runs lc_depth / lc_mask [H, W] of its fused
+        field.
         """
         if self.stereo:
             if rgb_other is None:
@@ -198,10 +227,18 @@ class NetRuntime:
         with torch.inference_mode():
             dpv_refined, low, self.prev_output, depth, uf = \
                 self._forward_post(mi)
-        return {"depth": depth, "dpv_refined": dpv_refined, "uf": uf,
-                "dpv_low": low}
+            result = {"depth": depth, "dpv_refined": dpv_refined, "uf": uf,
+                      "dpv_low": low}
+            if self.planner_rt is not None and depth_sense is not None:
+                lc_depth, mask = self.planner_rt.run(dpv_refined[None],
+                                                     depth_sense)
+                self.prev_lc = self._lc_feedback(self.planner_rt.final, low)
+                result["lc_depth"], result["lc_mask"] = lc_depth, mask
+        return result
 
     def reset(self):
         self._frames.clear()
         self.prev_output = None
         self.prev_lc = None
+        if self.planner_rt is not None:
+            self.planner_rt.init_unc_field()

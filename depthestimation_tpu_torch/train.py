@@ -9,8 +9,8 @@ It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU
 ``{exp}.json`` results go under ``outputs/checkpoints/{exp}`` in the
 working directory. With ``--synthetic``, or when ``data.dataset_path`` is
 not a directory, it trains on ``SyntheticStereoVideoDataset``; the real
-KITTI / ILIM loaders are not ported yet (ROADMAP.md, queue 1 item 6).
-Single process: DDP waits for queue 1 item 8.
+KITTI / ILIM loaders are not ported yet (ROADMAP.md, queue 1: "Real-data
+loaders"). Single process: DDP waits for queue 1's "Multi-GPU".
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def build_loaders(cfg, use_synthetic: bool):
     if not (use_synthetic or not os.path.isdir(cfg.data.dataset_path)):
         raise NotImplementedError(
             f"the real-data loaders ({cfg.data.dataset_path}) are not ported "
-            "yet (ROADMAP.md, queue 1 item 6: \"Real-data loaders\"); pass "
+            "yet (ROADMAP.md, queue 1: \"Real-data loaders\"); pass "
             "--synthetic")
     from depthestimation_tpu_torch.data.video_synthetic import (
         SyntheticStereoVideoDataset)

@@ -24,9 +24,11 @@ JAX's ``lax.scan`` routes (``tpu.scan_train``, ``tpu.scan_eval``) run
 the same modules over the same frames; on the card they are this frame
 loop, so the port ignores those keys (``config.IGNORED_TPU_KEYS``).
 Single process: the multi-host step vote and epoch barrier wait for DDP
-(ROADMAP.md, queue 1 item 8). The recorded-sweep fusion of a real light
-curtain (``lc.real_lc_config``) waits for ``lc_process_real`` (queue 1
-item 4).
+(ROADMAP.md, queue 1: "Multi-GPU"). With ``lc.real_lc_config`` a second,
+real ``LightCurtain`` is built from that sensor bundle and the LC loop
+leaves the step: after each step ``_run_lc`` fuses each side's refined
+DPV, against the batch's recorded sweep (``lc_process_real``) where the
+batch carries one, else with the simulator.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from depthestimation_tpu_torch.data.video_synthetic import (assemble_inputs,
                                                             to_device)
 from depthestimation_tpu_torch.lc.curtain import LightCurtain
 from depthestimation_tpu_torch.lc.process import lc_process
+from depthestimation_tpu_torch.lc.process_real import lc_process_real
 from depthestimation_tpu_torch.ops import dpv as dpv_ops
 from depthestimation_tpu_torch.ops import metrics as metrics_ops
 from depthestimation_tpu_torch.ops import ufield as ufield_ops
@@ -144,12 +147,8 @@ class DefaultTrainer:
         self._wait_total = 0.0
 
         self.lc = None
+        self.real_lc = None
         if cfg.lc.enabled:
-            if "real_lc_config" in cfg.lc:
-                raise NotImplementedError(
-                    "lc.real_lc_config (the recorded-sweep fusion, "
-                    "lc_process_real) is not ported yet (ROADMAP.md, queue "
-                    "1 item 4: \"LC serving\")")
             self.lc = LightCurtain(self.device)
         self.video_path = None
         self._video = None
@@ -229,30 +228,50 @@ class DefaultTrainer:
                                            self.cfg.var.ndepth,
                                            self.cfg.var.ndepth * 2)
         self.lc.init(params)
-        self._log.info(self.id, "Initialized light curtain")
-        # the LC loop runs inside the train step: rebuild it if the state
-        # was made before the curtain
+        # the real device of the recorded-sweep fusion, when the config
+        # names its sensor bundle
+        if "real_lc_config" in self.cfg.lc:
+            self.real_lc = LightCurtain(self.device)
+            rparams = self._load_lc_config(self.cfg.lc.real_lc_config)
+            self.real_lc.init(self.real_lc.expand_params(
+                rparams, self.cfg, 128, 128, "_real"))
+        self._log.info(self.id, "Initialized light curtain"
+                       + (" (+real sweep-fusion device)"
+                          if self.real_lc is not None else ""))
+        # the simulated LC loop runs inside the train step: rebuild it if
+        # the state was made before the curtain
         if self.state is not None:
             self._train_step = make_train_step(self.loss_func,
                                                lc_fn=self._fused_lc_fn())
 
     def _fused_lc_fn(self):
-        """The in-step LC loop closure (``fused_lc_fn``), or None."""
-        if self.lc is None or not self.lc.initialized:
+        """The in-step LC loop closure (``fused_lc_fn``), or None: also
+        None with a real device, whose fusion runs after the step
+        (``_run_lc``) as its inputs exist on sweep batches only."""
+        if self.lc is None or not self.lc.initialized or \
+                self.real_lc is not None:
             return None
         return fused_lc_fn(self.cfg, self.lc, self.uf_params)
 
     def _run_lc(self, refined, mi):
-        """plan -> sense -> fuse on the refined DPV with the simulator;
-        returns the 1/4-res log DPV feedback (``prev_lc``)."""
-        dmaps_up = mi["dmaps"].repeat_interleave(4, dim=-2) \
-            .repeat_interleave(4, dim=-1)
-        out = lc_process(refined, dmaps_up, mi["intrinsics_up"], self.lc,
-                         self.uf_params,
-                         iterations=int(self.cfg.lc.iterations),
-                         planner=self.cfg.lc.planner,
-                         params=dict(self.cfg.lc.params),
-                         generator=self.generator)
+        """plan -> sense -> fuse on the refined DPV; returns the 1/4-res
+        log DPV feedback (``prev_lc``). With a real device and a batch
+        that carries the recorded sweep ``sweep_arr_tensor`` [B, P, H, W,
+        2] (z, intensity) the curtains sample that sweep
+        (``lc_process_real``); otherwise the simulator senses them."""
+        kw = dict(iterations=int(self.cfg.lc.iterations),
+                  planner=self.cfg.lc.planner,
+                  params=dict(self.cfg.lc.params), generator=self.generator)
+        if self.real_lc is not None and "sweep_arr_tensor" in mi:
+            sweep = mi["sweep_arr_tensor"]
+            out = lc_process_real(refined, sweep[..., 0], sweep[..., 1],
+                                  mi["intrinsics_up"], self.lc, self.real_lc,
+                                  self.uf_params, **kw)
+        else:
+            dmaps_up = mi["dmaps"].repeat_interleave(4, dim=-2) \
+                .repeat_interleave(4, dim=-1)
+            out = lc_process(refined, dmaps_up, mi["intrinsics_up"], self.lc,
+                             self.uf_params, **kw)
         return out[:, :, ::4, ::4]
 
     # -- data prep ----------------------------------------------------------
@@ -366,9 +385,13 @@ class DefaultTrainer:
                     self.generator)
                 self.prev_output = {"left": aux["prev_output_left"],
                                     "right": aux["prev_output_right"]}
-                if "prev_lc_left" in aux:
+                if "prev_lc_left" in aux:        # the in-step LC loop
                     self.prev_lc = {"left": aux["prev_lc_left"],
                                     "right": aux["prev_lc_right"]}
+                elif self.real_lc is not None:   # the fusion after it
+                    self.prev_lc = {
+                        "left": self._run_lc(aux["refined_left"], dmi_l),
+                        "right": self._run_lc(aux["refined_right"], dmi_r)}
             if self.clear_prev_on_recurse:
                 self.prev_output = dict(_NO_PREV)
                 self.prev_lc = dict(_NO_PREV)

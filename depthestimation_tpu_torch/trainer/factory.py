@@ -1,6 +1,6 @@
 """Trainer factory (port of ``depthestimation_tpu/trainer/factory.py``):
-the depth trainer ("default") and the flow trainers. The sweep trainer is
-not ported yet (ROADMAP.md, queue 1: "Off-main-path models")."""
+the depth trainer ("default"), the curtain-response trainer ("sweep") and
+the flow trainers."""
 
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ def get_trainer(cfg):
         from depthestimation_tpu_torch.trainer.default import DefaultTrainer
         return DefaultTrainer
     if name == "sweep":
-        raise NotImplementedError(
-            "trainer 'sweep' is not ported yet (ROADMAP.md, queue 1: "
-            "\"Off-main-path models\")")
+        from depthestimation_tpu_torch.trainer.sweep import SweepTrainer
+        return SweepTrainer
     raise ValueError(f"unknown trainer {name!r}")

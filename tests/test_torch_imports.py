@@ -41,7 +41,9 @@ def test_port_imports_no_jax():
                  "utils", "utils.logger", "trainer.checkpoint",
                  "trainer.sintel", "trainer.factory",
                  "data.video_synthetic", "data.scheduler", "ops.metrics",
-                 "utils.visual", "train"):
+                 "utils.visual", "train", "lc.process_real",
+                 "runtime.planner_runtime", "runtime.sensor_sampling",
+                 "models.sweep", "losses.sweep_loss", "trainer.sweep"):
         assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]

@@ -266,8 +266,9 @@ def test_default_loss_and_factory():
     got = get_loss(_loss_cfg(tcfg.config_from_dict, "hwarp", "default"))
     assert isinstance(got, DefaultLoss)
     np.testing.assert_allclose(got(o, [None, None]).item(), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_loss(_loss_cfg(tcfg.config_from_dict, "hwarp", "sweep"))
+    from depthestimation_tpu_torch.losses.sweep_loss import SweepLoss
+    assert isinstance(get_loss(_loss_cfg(tcfg.config_from_dict, "hwarp",
+                                         "sweep")), SweepLoss)
     from depthestimation_tpu_torch.losses.flow_loss import UnFlowLoss
     assert isinstance(get_loss(_loss_cfg(tcfg.config_from_dict, "hwarp",
                                          "unflow")), UnFlowLoss)

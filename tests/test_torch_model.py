@@ -97,6 +97,11 @@ def test_slice_f32_matches_jax(batch, variables, nmode, with_prev):
 
 
 def test_other_nmodes_raise():
-    for nmode in ("default", "exp2", "exp3", "lc", "exp8"):
+    for nmode in ("default", "exp2", "exp3", "exp8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BaseModelNet(FD, D, nmode)
+    # nmode lc is ported for diffhomo false (all its configs); with the
+    # sweep it needs the cost volume alone
+    with pytest.raises(NotImplementedError, match="Other nmodes"):
+        BaseModelNet(FD, D, "lc")
+    assert BaseModelNet(FD, D, "lc", diffhomo=False).nmode == "lc"

@@ -300,8 +300,8 @@ def test_factories_wire_the_flow_slice():
     from depthestimation_tpu_torch.trainer.default import DefaultTrainer
     assert get_trainer(cfg) is DefaultTrainer
     cfg.data.trainer_name = "sweep"
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        get_trainer(cfg)
+    from depthestimation_tpu_torch.trainer.sweep import SweepTrainer
+    assert get_trainer(cfg) is SweepTrainer
     assert isinstance(get_loss(cfg), UnFlowLoss)
     model = get_model(cfg, "cpu", seed=0)
     assert isinstance(model, tp.PWCLite) and model.output_level == 4

@@ -384,13 +384,15 @@ def test_lc_epoch_with_pose_noise(tmp_path, monkeypatch):
 def test_unported_paths_raise(tmp_path):
     cfg = load_config(CONFIG)
     assert get_trainer(cfg) is DefaultTrainer
+    # the recorded-sweep fusion is ported: the real device is built with
+    # the curtains (tests/test_torch_lc_real.py runs it)
     lc_cfg = load_config(CONFIG)
     lc_cfg.lc.enabled = True
     lc_cfg.lc.real_lc_config = "real_sensor.json"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        DefaultTrainer(0, get_model(cfg, "cpu", seed=0), get_loss(cfg),
-                       init_logger("t_unported"), str(tmp_path), lc_cfg)
+    tr = DefaultTrainer(0, get_model(cfg, "cpu", seed=0), get_loss(cfg),
+                        init_logger("t_unported"), str(tmp_path), lc_cfg)
+    assert tr.real_lc is None and not tr.lc.initialized
     real = load_config(CONFIG)
     real.data.dataset_path = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Real-data loaders"):
         ttrain.build_loaders(real, False)
