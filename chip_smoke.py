@@ -121,7 +121,29 @@ Phases, one line each (a failed phase exits non-zero before the result):
    76, 0, 0) launches, rule-4 gradients against an f32 plain step; the
    step and ``lc_process_real`` ms; (e) ``SweepTrainer`` on
    ``configs/sweep_model.json`` (320x256, f32) over synthetic sweeps, B=2,
-   2 steps and a validation: finite losses, no kernel launch, ms per step.
+   2 steps and a validation: finite losses, no kernel launch, ms per step;
+12. the real-data loaders and the rest of the model family, on a fixture
+   tree the script writes to ``build/phase12`` (PNGs from ``write_png``,
+   zlib and struct: the card's host has no Pillow): (a) two raw KITTI
+   drives of 16 frames at 1242x375 with 2011_09_26's calibration, OXTS
+   packets 1 m apart and 120,000-point scans, a 2-frame validation drive,
+   and an ILIM sweep drive of 4 frames with 128-plane sweeps; (b) ms per
+   cold ``KittiVideoDataset.frame`` split into PNG decode, resize and
+   velodyne, the native and numpy ``generate_depth`` on one scan (the
+   same pixels, z within 1e-4 m), an ILIM sweep frame and
+   ``lcsweep_to_rgbsweep``; (c) ``python -m depthestimation_tpu_torch.
+   train`` on a bf16 copy of ``configs/default_exp7.json`` on the KITTI
+   tree (768x256 crop 384, ``-b 8``, the spawned loader): 16 steps with
+   the sweep, Base3D and convbn2d kernels launched, the median step ms and
+   the loader's wait share, then ``--eval``; (d) one step of nmodes
+   default, exp2 (``tofuse_dpv`` from the batch's depth), exp3 and lc with
+   the sweep in bf16 at 384x256, D 64, B=8 on a fixture batch, each with
+   its launches and rule-4 gradients against an f32 plain step and its
+   step ms; exp7 on the gather sweep in f32, its loss and gradients held
+   to the decomposed sweep's from the same weights; exp8's forward
+   raising ``ValueError``; one f32 step of ``DefaultModel`` and of
+   ``PackNetModel`` at B=2 with no kernel launched. Phase 3 also holds
+   exp3's first Base3D layer (C=3 -> F=32) forward and backward.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -458,7 +480,7 @@ def phase_kernels(card):
         w5 = wm.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4).contiguous()
         return u5, w5
 
-    for c, f in ((8, 32), (32, 8), (5, 32), (32, 32), (32, 1)):
+    for c, f in ((8, 32), (32, 8), (5, 32), (3, 32), (32, 32), (32, 1)):
         for n in (64, 512):
             for relu in (False, True):
                 x = torch.randn(n, c, h * w, generator=gen).to(dev,
@@ -516,9 +538,9 @@ def phase_kernels(card):
     # convbn_block backward at the path's (C, F): the bounds of
     # tests/test_convcomb_pallas.py:99-122 (dx 3% of max away from the
     # ReLU boundary, dW 3%, da and db 10%)
-    for c, f in ((5, 32), (32, 32), (32, 1)):
+    for c, f in ((5, 32), (3, 32), (32, 32), (32, 1)):
         for n in (64, 512):
-            relu = c != 5
+            relu = c not in (3, 5)      # the entry layers take no ReLU
             x = torch.randn(n, c, h * w, generator=gen).to(dev,
                                                            torch.bfloat16)
             wm = (torch.randn(3 * f, c, 3, 3, generator=gen) * 0.2).to(
@@ -1019,12 +1041,16 @@ def _train_batch(batch, w, h, dev):
 
 
 def _grad_groups(model):
+    """Each group's gradient as one vector (default and exp2 have no
+    Base3D)."""
     groups = {"encoder": "base_encoder.", "BV head": "conv0",
               "Base3D": "based_3d.", "decoder": "base_decoder."}
     import torch
-    return {g: torch.cat([p.grad.flatten() for k, p in
-                          model.named_parameters() if k.startswith(pre)])
-            for g, pre in groups.items()}
+    named = list(model.named_parameters())
+    return {g: torch.cat([p.grad.flatten() for k, p in named
+                          if k.startswith(pre)])
+            for g, pre in groups.items()
+            if any(k.startswith(pre) for k, _ in named)}
 
 
 def _wrappers():
@@ -2582,6 +2608,536 @@ def phase_sweep_train(card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 12
+
+#: 2011_09_26's calibration (the KITTI raw layout: P_rect, R_rect_00,
+#: S_rect; velo -> cam0; imu -> velo)
+KITTI_CALIB = {
+    "calib_cam_to_cam.txt": (
+        "calib_time: 09-Jan-2012 13:57:47\n"
+        "R_rect_00: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 "
+        "9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01\n"
+        "S_rect_02: 1.242000e+03 3.750000e+02\n"
+        "P_rect_02: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 "
+        "0.000000e+00 7.215377e+02 1.728540e+02 2.163791e-01 0.000000e+00 "
+        "0.000000e+00 1.000000e+00 2.745884e-03\n"
+        "S_rect_03: 1.242000e+03 3.750000e+02\n"
+        "P_rect_03: 7.215377e+02 0.000000e+00 6.095593e+02 -3.395242e+02 "
+        "0.000000e+00 7.215377e+02 1.728540e+02 2.199936e+00 0.000000e+00 "
+        "0.000000e+00 1.000000e+00 2.729905e-03\n"),
+    "calib_velo_to_cam.txt": (
+        "R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 "
+        "7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02\n"
+        "T: -4.069766e-03 -7.631618e-02 -2.717806e-01\n"),
+    "calib_imu_to_velo.txt": (
+        "R: 9.999976e-01 7.553071e-04 -2.035826e-03 -7.854027e-04 "
+        "9.998898e-01 -1.482298e-02 2.024406e-03 1.482454e-02 9.998881e-01\n"
+        "T: -8.086759e-01 3.195559e-01 -7.997231e-01\n"),
+}
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An 8-bit gray or RGB PNG of ``img`` from ``zlib`` and ``struct``
+    (the card's host has no Pillow): every row takes the Sub filter, so a
+    smooth texture compresses well."""
+    import struct
+    import zlib
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    rows = img.reshape(h, w * ch)
+    sub = rows.copy()
+    sub[:, ch:] = rows[:, ch:] - rows[:, :-ch]        # uint8 wraps mod 256
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def _texture(rng, h, w):
+    """A smooth RGB street-like texture with a little noise."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = rng.uniform(0, 6.3, 4)
+    img = np.stack([np.sin(x / 37 + ph[0]) + np.cos(y / 23 + ph[1]),
+                    np.sin((x + 2 * y) / 51 + ph[2]),
+                    np.cos(x / 17 - y / 41 + ph[3])], axis=-1)
+    img = 120 + 55 * img + rng.normal(0, 3, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _velodyne_scan(rng, beams=64, azimuths=1875):
+    """One HDL-64-like scan (64 x 1875 = 120,000 points, x forward, y
+    left, z up, 1.73 m above a ground plane, walls at 7 m either side):
+    [N, 4] float32 with reflectance."""
+    el = np.radians(np.linspace(-24.9, 2.0, beams))[:, None]
+    az = np.radians(np.linspace(-180.0, 180.0, azimuths,
+                                endpoint=False))[None]
+    dx, dy, dz = np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_ground = np.where(dz < 0, -1.73 / dz, np.inf)
+        t_wall = np.where(np.abs(dy) > 1e-6, 7.0 / np.abs(dy), np.inf)
+    r = np.minimum(np.minimum(t_ground, t_wall), 80.0)
+    r = r + rng.normal(0, 0.02, r.shape)
+    pts = np.stack([r * dx, r * dy, r * dz,
+                    rng.uniform(0, 1, r.shape)], axis=-1)
+    return pts.reshape(-1, 4).astype(np.float32)
+
+
+def write_kitti_fixture(root: str):
+    """Two raw KITTI drives of 16 frames at 1242x375 with 2011_09_26's
+    calibration and OXTS packets about 1 m apart, a 2-frame drive for
+    validation, and their splits (the training split lists each 16-frame
+    drive 4 times: 8 trajectories, one batch of 8). Returns the split
+    directory."""
+    date = "2011_09_26"
+    rng = np.random.default_rng(12)
+    os.makedirs(os.path.join(root, date), exist_ok=True)
+    for name, text in KITTI_CALIB.items():
+        with open(os.path.join(root, date, name), "w") as f:
+            f.write(text)
+    for drive, frames in (("0001", 16), ("0002", 16), ("0005", 2)):
+        dpath = os.path.join(root, date, f"{date}_drive_{drive}_sync")
+        for sub in ("image_02/data", "image_03/data",
+                    "velodyne_points/data", "oxts/data"):
+            os.makedirs(os.path.join(dpath, sub), exist_ok=True)
+        for t in range(frames):
+            for cam in ("02", "03"):
+                write_png(os.path.join(dpath, f"image_{cam}", "data",
+                                       f"{t:010d}.png"),
+                          _texture(rng, 375, 1242))
+            _velodyne_scan(rng).tofile(os.path.join(
+                dpath, "velodyne_points", "data", f"{t:010d}.bin"))
+            oxts = np.zeros(30)
+            # heading east, 1 m a frame at 49 degrees north (mercator)
+            oxts[:3] = 49.011, 8.4166 + t * 1.37e-5, 112.8
+            np.savetxt(os.path.join(dpath, "oxts", "data",
+                                    f"{t:010d}.txt"), oxts)
+    split = os.path.join(root, "split_kitti")
+    os.makedirs(split, exist_ok=True)
+    with open(os.path.join(split, "training.txt"), "w") as f:
+        f.write("".join(f"{date}_drive_{d}_sync\n"
+                        for d in ("0001", "0002") * 4))
+    with open(os.path.join(split, "testing.txt"), "w") as f:
+        f.write(f"{date}_drive_0005_sync\n" * 8)
+    return split
+
+
+def write_ilim_fixture(root: str, lc_w: int = 160, lc_h: int = 128):
+    """One ILIM sweep drive of 4 frames: 640x512 left / right / NIR PNGs,
+    a lidar scan each, and 128-plane sweeps [128, lc_h, lc_w, 2] (z,
+    intensity). Returns the split directory."""
+    date, drive = "2021_02_25", "0003"
+    rng = np.random.default_rng(13)
+    dpath = os.path.join(root, date, f"{date}_drive_{drive}_sweep")
+    for sub in ("left_img", "right_img", "lidar", "sweep", "nir_img"):
+        os.makedirs(os.path.join(dpath, sub), exist_ok=True)
+    left_2_lidar = np.eye(4)
+    left_2_lidar[:3, :3] = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
+    left_2_right = np.eye(4)
+    left_2_right[0, 3] = -0.24
+    p = [[600.0, 0, 320.0, 0], [0, 600.0, 256.0, 0], [0, 0, 1, 0]]
+    with open(os.path.join(dpath, "calib.json"), "w") as f:
+        json.dump({"left_2_lidar": left_2_lidar.tolist(),
+                   "left_2_right": left_2_right.tolist(),
+                   "left_P": p, "right_P": p}, f)
+    for t in range(4):
+        for sub in ("left_img", "right_img", "nir_img"):
+            write_png(os.path.join(dpath, sub, f"{t:06d}.png"),
+                      _texture(rng, 512, 640))
+        _velodyne_scan(rng).tofile(os.path.join(dpath, "lidar",
+                                                f"{t:06d}.bin"))
+        z = rng.uniform(1.0, 20.0, (128, lc_h, lc_w)).astype(np.float32)
+        inten = rng.uniform(0.0, 1.0, (128, lc_h, lc_w)).astype(np.float32)
+        np.save(os.path.join(dpath, "sweep", f"{t:06d}.npy"),
+                np.stack([z, inten], -1))
+    split = os.path.join(root, "split_sweep")
+    os.makedirs(split, exist_ok=True)
+    for name in ("training.txt", "testing.txt"):
+        with open(os.path.join(split, name), "w") as f:
+            f.write(f"{date}_drive_{drive}_sweep\n")
+    return split
+
+
+def _real_cfg(root, split, name, **var):
+    """The port's config ``configs/{name}.json`` on the fixture tree."""
+    from depthestimation_tpu_torch.config import config_from_dict
+    raw = _load_json(os.path.join(ROOT, "configs", name + ".json"))
+    raw["data"].update(dataset_path=root, dataset_split=split)
+    raw["var"].update(var)
+    return raw, config_from_dict(raw)
+
+
+def phase_loader(card, root, ksplit, isplit):
+    """Phase 12 (b): ms per ``KittiVideoDataset.frame`` from cold caches
+    on the card's host, split into PNG decode, resize and the velodyne
+    projection; the native and numpy backends on one full-size scan; an
+    ILIM sweep frame and ``lcsweep_to_rgbsweep``."""
+    from depthestimation_tpu_torch.data import ilim, kitti, velodyne
+    from depthestimation_tpu_torch.ops import geometry
+
+    spent = {"decode": 0.0, "resize": 0.0, "velodyne": 0.0}
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return run
+
+    real = kitti.read_png, kitti.resize_bilinear, kitti.generate_depth
+    kitti.read_png = timed("decode", real[0])
+    kitti.resize_bilinear = timed("resize", real[1])
+    kitti.generate_depth = timed("velodyne", real[2])
+    try:
+        _, cfg = _real_cfg(root, ksplit, "default_exp7")
+        ds = kitti.KittiVideoDataset(cfg)
+        ds.frame(0, 0)          # the native library builds here
+        ds = kitti.KittiVideoDataset(cfg)
+        for k in spent:
+            spent[k] = 0.0
+        frame_ms = []
+        for t in range(1, 5):   # a sliding window: one new view a side
+            t0 = time.perf_counter()
+            f = ds.frame(0, t)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            check(f.get("success", True), f"KITTI frame {t}: {f}")
+    finally:
+        kitti.read_png, kitti.resize_bilinear, kitti.generate_depth = real
+    n = len(frame_ms)
+    check(f["rgb_left"].shape == (2, 3, 256, 384)
+          and f["dmap_up_left"].shape == (256, 384)
+          and int((f["dmap_up_left"] > 0).sum()) > 1000,
+          f"KITTI frame shapes {f['rgb_left'].shape}, depth points "
+          f"{int((f['dmap_up_left'] > 0).sum())}")
+    # native against numpy on one full-size scan, at the frame's geometry
+    drive = ds.drives[0]
+    k34 = np.concatenate([drive.get_left_K(), np.zeros((3, 1))], 1)
+    intr = geometry.intr_scale(k34, drive.get_left_size(), (768, 256))
+    velo = drive.get_lidar(3)
+    args = (velo, intr, drive.get_lidar_2_leftcam(), 768, 256,
+            {"filtering": 2, "upsample": 0})
+    t0 = time.perf_counter()
+    nat = velodyne.generate_depth(*args)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = velodyne.generate_depth(*args, backend="numpy")
+    np_ms = (time.perf_counter() - t0) * 1e3
+    # the same pixels; z within float rounding (the native transform sums
+    # in order, numpy's matmul does not)
+    z_err = float(np.abs(nat - ref).max())
+    check(np.array_equal(nat > 0, ref > 0) and z_err <= 1e-4,
+          f"generate_depth: native and numpy differ: "
+          f"{int(((nat > 0) != (ref > 0)).sum())} pixels, z by {z_err}")
+    # ILIM sweep drive: one frame, its sweep in the RGB frame
+    _, icfg = _real_cfg(root, isplit, "default_ilim", img_size=[320, 256],
+                        crop_w=320)
+    ids = ilim.IlimVideoDataset(icfg)
+    t0 = time.perf_counter()
+    fi = ids.frame(0, 1)
+    ilim_ms = (time.perf_counter() - t0) * 1e3
+    check(fi.get("success", True) and fi["sweep_arr"].shape ==
+          (128, 128, 160, 2) and fi["nir_img"].shape == (512, 640),
+          f"ILIM sweep frame {fi.get('error', '')}")
+    lc_intr = np.array([[150.0, 0, 80.0], [0, 150.0, 64.0], [0, 0, 1]])
+    t0 = time.perf_counter()
+    with np.errstate(divide="ignore", invalid="ignore"):   # depth-0 pixels
+        feat_int, feat_z, mask, _, _ = ilim.lcsweep_to_rgbsweep(
+            fi["sweep_arr"], fi["dmap_up_left"], fi["intrinsics_up"],
+            (320, 256), lc_intr, (160, 128), np.eye(4),
+            np.zeros((128, 160), np.float32))
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    check(feat_int.shape == (128, 256, 320) and mask.sum() > 100,
+          f"lcsweep_to_rgbsweep: {int(mask.sum())} pixels gathered")
+    print(f"phase 12b: KittiVideoDataset.frame 1242x375 -> 768x256 crop 384, "
+          f"cold caches (one new view a side, depth for the reference): "
+          f"{[round(x, 3) for x in frame_ms]} ms, per frame decode "
+          f"{spent['decode'] * 1e3 / n:.3f} ms, resize "
+          f"{spent['resize'] * 1e3 / n:.3f} ms, velodyne "
+          f"{spent['velodyne'] * 1e3 / n:.3f} ms ({len(velo)} points a "
+          f"scan); generate_depth at 768x256 native {nat_ms:.3f} ms, numpy "
+          f"{np_ms:.3f} ms, the same {int((nat > 0).sum())} pixels, z within "
+          f"{z_err:.3g} m; ILIM sweep frame 640x512 -> 320x256 "
+          f"{ilim_ms:.3f} ms, lcsweep_to_rgbsweep {sweep_ms:.3f} ms "
+          f"({int(mask.sum())} pixels) [{card}]", flush=True)
+
+
+def phase_trainer_kitti(card, root, ksplit):
+    """Phase 12 (c): ``python -m depthestimation_tpu_torch.train`` on a bf16
+    copy of ``configs/default_exp7.json`` on the fixture tree: one epoch at
+    ``-b 8`` from the spawned loader, its validation, then ``--eval``."""
+    import shutil
+
+    import torch
+    from depthestimation_tpu_torch import train as ttrain
+    from depthestimation_tpu_torch.trainer import default as tdefault
+
+    work = os.path.join(ROOT, "build", "phase12", "trainer")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    raw, _ = _real_cfg(root, ksplit, "default_exp7")
+    raw["tpu"] = {"dtype": "bfloat16"}
+    raw["train"].update(epoch_num=1, print_freq=4)
+    raw["data"]["exp_name"] = "kitti_exp7"
+    path = os.path.join(work, "default_exp7_kitti.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    steps = []
+    real_make, counted_make = _counted_steps(tdefault, steps)
+    cwd = os.getcwd()
+    os.chdir(work)
+    tdefault.make_train_step = counted_make
+    try:
+        t0 = time.perf_counter()
+        tr = ttrain.main(["--config", path, "-b", "8"])
+        wall = time.perf_counter() - t0
+        ev = ttrain.main(["--config", path, "--eval"])
+    finally:
+        tdefault.make_train_step = real_make
+        os.chdir(cwd)
+    check(type(tr.train_loader.dataset).__name__ == "KittiVideoDataset"
+          and tr.train_loader.mload, "the CLI did not train on the KITTI "
+          "tree from the spawned loader")
+    losses = tr._last_epoch_losses
+    check(len(steps) == 16 and len(losses) == 16
+          and all(np.isfinite(losses)),
+          f"{len(steps)} steps, losses {losses}: 8 trajectories of 16 "
+          "frames at B=8 are 16 steps")
+    per_step = {s[0] for s in steps}
+    check(len(per_step) == 1, f"launches vary by step: {per_step}")
+    launches = dict(zip(COUNT_NAMES, steps[0][0]))
+    for k in ("sweep_stage2", "sweep_stage2_bwd", "convbn_block",
+              "convbn_block_bwd", "convbn2d", "convbn2d_bwd"):
+        check(launches[k] > 0, f"the KITTI step launched no {k}")
+    check(ev.cfg.train.batch_size == 1, "--eval did not validate at B=1")
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for _, (a, b) in steps]
+    wait = tr.loader_wait_seconds / tr.epoch_seconds
+    print(f"phase 12c: trainer CLI on the KITTI tree (default_exp7.json, "
+          f"bf16, 768x256 crop 384, fd=64 D=64, -b 8, spawned loader): 16 "
+          f"steps, losses {[round(x, 4) for x in losses]}, step ms median "
+          f"{float(np.median(ms)):.3f} (CUDA events: "
+          f"{[round(x, 3) for x in ms]}), epoch {tr.epoch_seconds:.3f} s of "
+          f"which loader wait {tr.loader_wait_seconds:.3f} s "
+          f"({100 * wait:.1f}%), main() {wall:.3f} s; launches a step "
+          f"{launches}; --eval at B=1 done [{card}]", flush=True)
+
+
+def _kitti_batch(cfg, dev, batch=8):
+    """The second frame of the first fixture batch (a 1 m step between the
+    views), one camera side on the card with its soft labels."""
+    import torch
+    from depthestimation_tpu_torch.data.kitti import KittiVideoDataset
+    from depthestimation_tpu_torch.data.scheduler import BatchScheduler
+    from depthestimation_tpu_torch.data.video_synthetic import (
+        assemble_inputs, to_device)
+    from depthestimation_tpu_torch.trainer.default import _soft_labels
+    ds = KittiVideoDataset(cfg)
+    it = BatchScheduler(ds, batch, shuffle=False, prefetch=False).enumerate()
+    next(it)
+    b = next(it)
+    it.close()
+    mi_np, gt_np = assemble_inputs(b, "left")
+    moved = {}
+    mi = to_device({k: v for k, v in mi_np.items()
+                    if k not in ("prev_output", "prev_lc")}, dev, moved)
+    gt = to_device(gt_np, dev, moved)
+    d_candi = torch.as_tensor(mi_np["d_candi"], dtype=torch.float32,
+                              device=dev)
+    gt["soft_labels"] = _soft_labels(gt["dmaps"], gt["masks"], d_candi, 0.3)
+    gt["soft_labels_imgsize"] = _soft_labels(
+        gt["dmap_imgsizes"], gt["masks_imgsizes"], d_candi, 0.3)
+    return mi, gt
+
+
+def gather_hold(cfg, cfg_dec, step, mi, gt, base, tag):
+    """The f32 gather sweep's first step against the decomposed sweep's
+    from the same weights. The fixture's poses are pure translation
+    (R = I), where the two sweeps sample the same points, so they differ
+    by rounding only. The loss and each group's gradient must lie within
+    1e-3 plus three times the most the decomposed step moves when the
+    images move by one part in 10^6 (two draws: the rule of
+    tests/test_torch_train_step.py). Both steps launch no kernel.
+    Returns the gather step's distances and their bounds."""
+    import torch
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import init_state
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runs = [("gather", cfg, mi), ("decomposed", cfg_dec, mi)]
+    for k in range(2):
+        noise = torch.randn(mi["rgb"].shape, generator=gen,
+                            device=mi["rgb"].device)
+        runs.append((f"moved {k}", cfg_dec,
+                     dict(mi, rgb=mi["rgb"] * (1 + 1e-6 * noise))))
+    got = {}
+    for name, c, x in runs:
+        model = get_model(c, "cuda")
+        model.load_state_dict(base.state_dict())
+        before = launch_counts()
+        state, loss, _ = step(init_state(model, c), x, x, gt, gt)
+        n = tuple(a - b for a, b in zip(launch_counts(), before))
+        check(n == (0,) * len(n), f"{tag} {name}: launches {n}")
+        check(np.isfinite(loss.item()), f"{tag} {name}: loss {loss.item()}")
+        got[name] = {"loss": loss.detach().reshape(1), **_grad_groups(model)}
+        del model, state
+    ref = got["decomposed"]
+    dists = {k: _dist(got["gather"][k], ref[k]) for k in ref}
+    bounds = {k: 1e-3 + 3 * max(_dist(got[f"moved {i}"][k], ref[k])
+                                for i in range(2)) for k in ref}
+    for k in ref:
+        check(dists[k] <= bounds[k],
+              f"{tag} {k}: gather-vs-decomposed {dists[k]:.4g} > 1e-3 + "
+              f"3 x the decomposed step's motion = {bounds[k]:.4g}")
+    return dists, bounds
+
+
+def phase_nmodes(card, root, ksplit):
+    """Phase 12 (d): one train step of each new nmode at full width on a
+    fixture KITTI batch (384x256, D 64, fd 64, bf16, B 8) with rule-4
+    gradients against an f32 plain step; the f32 gather sweep's step held
+    to the decomposed sweep's (``gather_hold``); exp8; one f32 step of
+    DefaultModel and of PackNet at B=2."""
+    import torch
+    from depthestimation_tpu_torch.config import config_from_dict
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.ops.dpv import gen_dpv_withmask
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+    dev = torch.device("cuda")
+    lines = []
+    cases = (  # tag, config, var overrides, tpu dtype, launches per step
+        ("default", "default", {}, "bfloat16", (0, 0, 0, 0, 76, 76, 0, 0)),
+        ("exp2", "default_exp2", {}, "bfloat16", (0, 0, 0, 0, 76, 76, 0, 0)),
+        ("exp3", "default_exp3", {}, "bfloat16",
+         (2, 2, 16, 16, 76, 76, 0, 0)),
+        ("lc with the sweep", "default_318_lc",
+         {"diffhomo": True, "d_min": D_MIN, "d_max": D_MAX}, "bfloat16",
+         (0, 0, 16, 16, 76, 76, 0, 0)),
+        ("exp7 gather", "default_exp7", {"sweep_impl": "gather"}, "float32",
+         (0,) * 8))
+    mi = gt = None
+    for tag, name, var, dtype, want in cases:
+        raw, _ = _real_cfg(root, ksplit, name, **var)
+        raw["tpu"] = {"dtype": dtype}
+        cfg = config_from_dict(raw)
+        raw32 = json.loads(json.dumps(raw))
+        raw32["tpu"] = {"dtype": "float32"}
+        cfg32 = config_from_dict(raw32)
+        if mi is None:
+            mi, gt = _kitti_batch(cfg, dev)
+        m = dict(mi)
+        if tag == "exp2":
+            m["tofuse_dpv"] = gen_dpv_withmask(mi["dmaps"], mi["masks"],
+                                               mi["d_candi"], 0.3)
+        base = get_model(cfg, "cuda", seed=0)
+        step = make_train_step(get_loss(cfg))
+        if tag == "exp7 gather":
+            raw_d = json.loads(json.dumps(raw))
+            raw_d["var"]["sweep_impl"] = "decomposed"
+            dists, bounds = gather_hold(cfg, config_from_dict(raw_d), step,
+                                        m, gt, base, f"phase 12d {tag}")
+        else:
+            dists, _ = rule4_step(cfg, cfg32, step, m, gt, base,
+                                  f"phase 12d {tag}", want)
+        model = get_model(cfg, "cuda")
+        model.load_state_dict(base.state_dict())
+        state = init_state(model, cfg)
+        ms = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, loss, _ = step(state, m, m, gt, gt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        if tag == "exp7 gather":
+            held = ", ".join(f"{k} {dists[k]:.4g} <= {bounds[k]:.4g}"
+                             for k in dists)
+            held = f"rel dist from the decomposed sweep's step: {held}"
+        else:
+            held = ", ".join(f"{k} {dists['kernel'][k]:.4g} / "
+                             f"{dists['plain'][k]:.4g}"
+                             for k in dists["kernel"])
+            held = f"rel dist from the f32 step (kernel / plain): {held}"
+        lines.append(f"phase 12d: {tag} ({name}.json, {dtype}) 384x256 "
+                     f"fd=64 D=64 B=8 on the KITTI batch: launches a step "
+                     f"{want}; {held}; step ms "
+                     f"{[round(x, 3) for x in ms]} [{card}]")
+        print(lines[-1], flush=True)
+        del base, model, state
+        torch.cuda.empty_cache()
+    # exp8 builds and its forward raises, as in JAX
+    raw, _ = _real_cfg(root, ksplit, "default_exp8")
+    raw["tpu"] = {"dtype": "bfloat16"}
+    m8 = get_model(config_from_dict(raw), "cuda", seed=0)
+    try:
+        m8(mi)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "nmode exp8's forward did not raise ValueError")
+    del m8
+    # DefaultModel and PackNet, f32, B=2: no kernel of the port
+    for name in ("default", "packnet"):
+        raw, _ = _real_cfg(root, ksplit, "default_exp7")
+        raw["data"]["model_name"] = name
+        cfg = config_from_dict(raw)
+        def first2(d):
+            return {k: (v[:2] if torch.is_tensor(v) and v.dim() > 1
+                        and v.shape[0] == 8 else v) for k, v in d.items()}
+
+        small, small_gt = first2(mi), first2(gt)
+        model = get_model(cfg, "cuda", seed=0)
+        state = init_state(model, cfg)
+        step = make_train_step(get_loss(cfg))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        reset_counts()
+        ms = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, loss, _ = step(state, small, small, small_gt, small_gt,
+                                  gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        got = launch_counts()
+        check(np.isfinite(loss.item()) and got == (0,) * 8,
+              f"{name}: loss {loss.item()}, launches {got}")
+        print(f"phase 12d: model_name {name} f32 384x256 D=64 B=2: loss "
+              f"{loss.item():.5f}, step ms {[round(x, 3) for x in ms]}, "
+              f"launches {got} [{card}]", flush=True)
+        del model, state
+        torch.cuda.empty_cache()
+    print(f"phase 12d: exp8 raises ValueError [{card}]", flush=True)
+
+
+def phase_real_data(card):
+    """Phase 12: the real-data loaders and the rest of the model family on
+    a fixture tree at KITTI's size, written to ``build/phase12``."""
+    import shutil
+    root = os.path.join(ROOT, "build", "phase12", "data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ksplit = write_kitti_fixture(root)
+    isplit = write_ilim_fixture(root)
+    print(f"phase 12a: fixture tree (2 KITTI drives of 16 frames at "
+          f"1242x375 and one of 2, 120,000 points a scan; one ILIM sweep "
+          f"drive of 4 frames, 128 planes) written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    phase_loader(card, root, ksplit, isplit)
+    phase_trainer_kitti(card, root, ksplit)
+    phase_nmodes(card, root, ksplit)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2620,6 +3176,7 @@ def main() -> int:
         phase_pipelined(card)
         phase_lc_real_train(card)
         phase_sweep_train(card)
+        phase_real_data(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

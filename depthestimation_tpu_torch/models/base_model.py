@@ -1,12 +1,27 @@
 """BaseModelNet: the recursive DPV network, eval and train forward.
 
-Port of ``depthestimation_tpu/models/base_model.py`` for nmodes ``exp7``,
-``exp7_lc`` and ``lc``: encoder -> decomposed plane sweep + diagonal
-feature warp -> BV head -> Base3D over [bv, prev_output, (prev_lc),
-warped] -> decoder. nmode ``lc`` runs Base3D over four planes instead,
-[bv, prev_output, prev_lc, the reference frame's features] (the features
-need ``feature_dim == ndepth``), with ``diffhomo: false`` (every config
-of it): no sweep and no warp.
+Port of ``depthestimation_tpu/models/base_model.py``, every nmode
+(``base_model.py:437-523``): encoder -> plane sweep -> BV head -> the
+nmode's head -> decoder.
+
+- ``default``: the decoder on ``exp(bv)``; ``output`` is ``[bv]``.
+- ``exp2``: ``bv`` fused by log-addition with ``model_input["tofuse_dpv"]``
+  (a probability DPV [B, D, h, w] the caller supplies: no module of the
+  JAX package produces it); ``output`` is ``[bv_fused, bv]``.
+- ``exp3``: Base3D over ``[bv, warped]`` (1 + T planes), log-softmax over
+  depth; ``output`` is ``[bv, bv_upd]``.
+- ``exp7``, ``exp7_lc``: Base3D over ``[bv, prev_output, (prev_lc),
+  warped]``, its residual added to ``bv``; ``output`` is ``[bv, bv_upd]``.
+- ``lc``: Base3D over four planes, ``[bv, prev_output, prev_lc, the
+  reference frame's features]`` (``feature_dim == ndepth``).
+- ``exp8``: builds a second decoder as JAX does; its forward raises
+  ``ValueError``, as JAX's (the reference has no exp8 branch).
+
+exp3, exp7 and exp7_lc take the fused sweep (cost volume and diagonal
+warp); default, exp2 and lc the cost volume alone. ``sweep_impl``
+"decomposed" (the default) runs the decomposed sweep, "gather" the
+per-depth 4-tap gather (``ops/plane_sweep.py``), f32 at every dtype, as
+in JAX.
 Layouts follow the JAX package: ``rgb [B, T, 3, H, W]`` in, DPVs
 ``[B, D, h, w]`` out. ``.train()`` selects the train-mode forward: the
 only difference is the random ``prev_lc`` drop (``_drop_prev_lc``), whose
@@ -33,6 +48,9 @@ gates (``jax.default_backend() == "tpu"``, a single device, the strip
 width, ``B*D >= 192``, ``(h*w) % 128 == 0``) are TPU measurements and do
 not carry over: on CUDA a bf16 model runs the kernels at every batch and
 size. ``use_kernels = False`` runs the same routes on the plain versions.
+The cost volume alone (default, exp2 and lc with the sweep) and the gather
+sweep are plain torch at every dtype: JAX computes them in XLA, outside
+its sweep kernel.
 
 Three more keys route as in JAX. ``sweep_dtype`` ("auto", "float32",
 "bfloat16") is the plane sweep's compute dtype (``_sweep_dtype``): "auto"
@@ -61,10 +79,15 @@ from depthestimation_tpu_torch.models.decoder import BaseDecoder
 from depthestimation_tpu_torch.models.encoder import BaseEncoder
 from depthestimation_tpu_torch.models.layers import Conv, avg_pool, leaky_relu
 from depthestimation_tpu_torch.ops.plane_sweep import (
-    plane_sweep_and_warp_batched, warp_feature_volume_batched)
+    plane_sweep_and_warp, plane_sweep_and_warp_batched, plane_sweep_volume,
+    plane_sweep_volume_decomposed, warp_feature_volume_batched)
 from depthestimation_tpu_torch.utils import precision
 
-NMODES = ("exp7", "exp7_lc", "lc")
+NMODES = ("default", "exp2", "exp3", "exp7", "exp7_lc", "lc", "exp8")
+#: the nmodes with a Base3D head (JAX ``base_model.py:268`` builds it for
+#: exp4 and exp6 too, which have no forward branch)
+BASE3D_NMODES = ("exp3", "exp7", "exp7_lc", "lc")
+SWEEP_IMPLS = ("decomposed", "gather")
 _SWEEP_DTYPES = {"auto": "auto", "float32": torch.float32,
                  "bfloat16": torch.bfloat16}
 
@@ -79,21 +102,18 @@ class BaseModelNet(nn.Module):
                  use_lc_prob: float = 0.7, dtype=None, convbn2d="auto",
                  convcomb_pallas="auto", combine_pallas="auto",
                  sweep_dtype="auto", conv3d_flat: bool = True,
-                 diffhomo: bool = True):
+                 diffhomo: bool = True, sweep_impl: str = "decomposed"):
         super().__init__()
         if nmode not in NMODES:
-            raise NotImplementedError(
-                f"nmode {nmode!r} is not ported yet: the port runs "
-                f"{NMODES} (see ROADMAP.md, queue 1)")
-        if nmode == "lc" and diffhomo:
-            raise NotImplementedError(
-                "nmode 'lc' with var.diffhomo true needs the cost volume "
-                "alone, which is not ported yet (ROADMAP.md, queue 1: "
-                "\"Other nmodes\"); its configs set diffhomo false")
+            raise ValueError(f"unknown nmode {nmode!r} (one of {NMODES})")
         if sweep_dtype not in _SWEEP_DTYPES:
             raise ValueError(f"sweep_dtype {sweep_dtype!r} is not one of "
                              f"{tuple(_SWEEP_DTYPES)}")
+        if sweep_impl not in SWEEP_IMPLS:
+            raise ValueError(f"sweep_impl {sweep_impl!r} is not one of "
+                             f"{SWEEP_IMPLS}")
         self.sweep_dtype = _SWEEP_DTYPES[sweep_dtype]
+        self.sweep_impl = sweep_impl
         self.conv3d_flat, self.diffhomo = bool(conv3d_flat), bool(diffhomo)
         self.feature_dim, self.d, self.nmode = feature_dim, d, nmode
         self.sigma_soft_max = sigma_soft_max
@@ -115,11 +135,18 @@ class BaseModelNet(nn.Module):
                           dtype=dtype)
         self.conv0_1 = Conv(d, d, 3, 1, 1, dtype=dtype)
         self.conv0_2 = Conv(d, d, 3, 1, 1, dtype=dtype)
-        in_ch = 4 if nmode == "lc" else 2 + (nmode == "exp7_lc") + n_views
-        self.based_3d = Base3D(in_ch, d, feature_dim=32, dres_count=2,
-                               bn_avg=bn_avg, dtype=dtype,
-                               convcomb=self._resolved_convcomb_pallas(),
-                               combine=self._resolved_combine_pallas())
+        if nmode in BASE3D_NMODES:
+            in_ch = {"exp3": 1 + n_views, "exp7": 2 + n_views,
+                     "exp7_lc": 3 + n_views, "lc": 4}[nmode]
+            self.based_3d = Base3D(
+                in_ch, d, feature_dim=32, dres_count=2, bn_avg=bn_avg,
+                dtype=dtype, convcomb=self._resolved_convcomb_pallas(),
+                combine=self._resolved_combine_pallas())
+        if nmode == "exp8":
+            # the reference allocates exp8's second decoder but has no
+            # forward branch for it (JAX base_model.py:281-287)
+            self.base_decoder2 = BaseDecoder(d, feature_dim, int(32 * mul),
+                                             3, dtype)
 
     def _resolved_convcomb_pallas(self):
         if not self.conv3d_flat:
@@ -218,40 +245,115 @@ class BaseModelNet(nn.Module):
         with precision.no_tf32():
             return self._forward(model_input, generator)
 
+    def _sweep(self, feat_all, feat_raw, model_input, d_candi):
+        """(cost [B, D, h, w], warped [B, T, D, h, w] or None) as JAX's
+        ``__call__`` routes them: no sweep without ``diffhomo`` (the cost is
+        the reference frame's features), the fused sweep for exp3, exp7
+        and exp7_lc, the cost volume alone for the other nmodes."""
+        if not self.diffhomo:
+            return feat_all[:, -1, :-3], None
+        poses, intr = model_input["src_cam_poses"], model_input["intrinsics"]
+        fused = self.nmode in ("exp3", "exp7", "exp7_lc")
+        if self.sweep_impl == "gather":
+            rays = model_input["unit_ray"]
+            if fused:
+                return plane_sweep_and_warp(feat_all, feat_raw, d_candi,
+                                            poses, intr, rays,
+                                            self.sigma_soft_max)
+            return plane_sweep_volume(feat_all, d_candi, poses, intr, rays,
+                                      self.sigma_soft_max), None
+        if fused:
+            return plane_sweep_and_warp_batched(
+                feat_all, feat_raw, d_candi, poses, intr,
+                self.sigma_soft_max, dtype=self._sweep_dtype(),
+                use_kernel=self.use_kernels)
+        return plane_sweep_volume_decomposed(
+            feat_all, d_candi, poses, intr, self.sigma_soft_max,
+            dtype=self._sweep_dtype()), None
+
     def _forward(self, model_input, generator):
+        nmode = self.nmode
+        if nmode == "exp8":
+            raise ValueError(
+                "nmode 'exp8' has no forward pass (parity with the "
+                "reference, models.py:477-478 + :835)")
         rgb = model_input["rgb"]
         feat1, feat_raw, feat_all = self._encode(rgb)
         d_candi = torch.as_tensor(model_input["d_candi"],
                                   dtype=torch.float32, device=rgb.device)
-        if self.nmode == "lc":
-            cost, warped = feat_all[:, -1, :-3], None
-        elif self.diffhomo:
-            cost, warped = plane_sweep_and_warp_batched(
-                feat_all, feat_raw, d_candi, model_input["src_cam_poses"],
-                model_input["intrinsics"], self.sigma_soft_max,
-                dtype=self._sweep_dtype(), use_kernel=self.use_kernels)
-        else:
-            cost = feat_all[:, -1, :-3]
-            warped = warp_feature_volume_batched(
-                feat_raw, d_candi, model_input["src_cam_poses"],
-                model_input["intrinsics"], model_input["unit_ray"])
+        cost, warped = self._sweep(feat_all, feat_raw, model_input, d_candi)
         bv = self._bv_head(cost)
 
         feats_dec = [feat_all[:, -1, :-3], feat1[:, -1], rgb[:, -1]]
-        prev_output = self._prev_or_uniform(
-            model_input.get("prev_output"), bv, log=self.nmode != "exp7")
-        planes = [bv[:, None], prev_output[:, None]]
-        if self.nmode != "exp7":
-            planes.append(self._drop_prev_lc(
-                model_input.get("prev_lc"), bv, generator)[:, None])
-        if self.nmode == "lc":
-            planes.append(feat_all[:, -1, None, :-3])
+        if nmode == "default":
+            refined = self.base_decoder(torch.exp(bv), feats_dec,
+                                        self.use_kernels)
+            return {"output": [bv], "output_refined": [refined],
+                    "flow": None, "flow_refined": None}
+        if nmode == "exp2":
+            if "tofuse_dpv" not in model_input:
+                raise KeyError(
+                    "nmode exp2 fuses model_input['tofuse_dpv'] (a "
+                    "probability DPV [B, D, h, w]) into the BV: the caller "
+                    "supplies it, no module produces it")
+            tofuse = torch.as_tensor(model_input["tofuse_dpv"],
+                                     dtype=torch.float32, device=rgb.device)
+            fused = torch.exp(bv + torch.log(tofuse))
+            fused = fused / fused.sum(dim=1, keepdim=True)
+            fused = torch.clamp(fused, 1e-16, 1.0)
+            refined = self.base_decoder(fused, feats_dec, self.use_kernels)
+            return {"output": [torch.log(fused), bv],
+                    "output_refined": [refined],
+                    "flow": None, "flow_refined": None}
+        if warped is None and nmode != "lc":
+            warped = warp_feature_volume_batched(
+                feat_raw, d_candi, model_input["src_cam_poses"],
+                model_input["intrinsics"], model_input["unit_ray"])
+        if nmode == "exp3":
+            vol = torch.cat([bv[:, None], warped], dim=1)   # [B, C, D, h, w]
+            bv_upd = torch.log_softmax(self.based_3d(vol, self.use_kernels),
+                                       dim=1)
         else:
-            planes.append(warped)
-        vol = torch.cat(planes, dim=1)                   # [B, C, D, h, w]
-        resi = self.based_3d(vol, self.use_kernels)
-        bv_upd = torch.log_softmax(bv + resi, dim=1)
+            prev_output = self._prev_or_uniform(
+                model_input.get("prev_output"), bv, log=nmode != "exp7")
+            planes = [bv[:, None], prev_output[:, None]]
+            if nmode != "exp7":
+                planes.append(self._drop_prev_lc(
+                    model_input.get("prev_lc"), bv, generator)[:, None])
+            if nmode == "lc":
+                planes.append(feat_all[:, -1, None, :-3])
+            else:
+                planes.append(warped)
+            vol = torch.cat(planes, dim=1)               # [B, C, D, h, w]
+            resi = self.based_3d(vol, self.use_kernels)
+            bv_upd = torch.log_softmax(bv + resi, dim=1)
         refined = self.base_decoder(torch.exp(bv_upd), feats_dec,
                                     self.use_kernels)
         return {"output": [bv, bv_upd], "output_refined": [refined],
                 "flow": None, "flow_refined": None}
+
+
+class DefaultModel(nn.Module):
+    """The tiny debug CNN (JAX ``base_model.py:539-554``): two 3x3 convs
+    with leaky ReLU (0.1) and 2x2 max-pools on the last frame, a
+    log-softmax DPV at 1/4 and its x4 nearest upsampling. f32, no kernel
+    of the port."""
+
+    def __init__(self, d: int = 64):
+        super().__init__()
+        self.d = d
+        self.Conv_0 = Conv(3, 32, 3, 1, 1)
+        self.Conv_1 = Conv(32, d, 3, 1, 1)
+
+    def forward(self, model_input: dict,
+                generator: torch.Generator | None = None) -> dict:
+        with precision.no_tf32():
+            x = model_input["rgb"][:, -1]
+            x = torch.nn.functional.max_pool2d(
+                leaky_relu(self.Conv_0(x), 0.1), 2)
+            x = torch.nn.functional.max_pool2d(
+                leaky_relu(self.Conv_1(x), 0.1), 2)
+            up = x.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)
+            return {"output": [torch.log_softmax(x, dim=1)],
+                    "output_refined": [torch.log_softmax(up, dim=1)],
+                    "flow": None, "flow_refined": None}

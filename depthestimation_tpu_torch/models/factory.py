@@ -4,8 +4,9 @@ from __future__ import annotations
 
 import torch
 
-from depthestimation_tpu_torch.models import pwclite
-from depthestimation_tpu_torch.models.base_model import BaseModelNet
+from depthestimation_tpu_torch.models import packnet, pwclite
+from depthestimation_tpu_torch.models.base_model import (BaseModelNet,
+                                                         DefaultModel)
 from depthestimation_tpu_torch.models.layers import init_weights
 from depthestimation_tpu_torch.models.sweep import SweepModel
 
@@ -23,7 +24,10 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
     caller names the CPU; without a card the default raises) in eval mode
     (``.train()`` switches to the train-mode forward).
 
-    ``"pwclite"`` is ``PWCLite()`` with its defaults, as in JAX (2 frames,
+    ``"default"`` is ``DefaultModel(d=ndepth)`` and ``"packnet"``
+    ``PackNetModel(d=ndepth)``, as in JAX (f32; neither runs a kernel of
+    the port). ``"pwclite"`` is ``PWCLite()`` with its defaults, as in JAX
+    (2 frames,
     the reduced estimator, search range 4, output level 4, f32; its
     ``use_kernels`` routes the correlation); ``"sweep"`` is
     ``SweepModel()`` with its defaults, as in JAX (feature_dim 32, batch
@@ -36,44 +40,46 @@ def get_model(cfg, device="cuda", seed: int | None = None) -> torch.nn.Module:
     sweep's compute dtype, ``tpu.conv3d_flat`` (True) False takes JAX's
     5-D Base3D route (the port's flat stack) and ``var.diffhomo`` (True)
     False runs no sweep (``BaseModelNet``); a value they do not take
-    raises ``ValueError``. The other ``tpu`` keys are TPU-only and ignored
+    raises ``ValueError``; ``var.sweep_impl`` ("decomposed") "gather" takes
+    the gather sweep. The other ``tpu`` keys are TPU-only and ignored
     (``config.IGNORED_TPU_KEYS``). With
     ``seed`` the weights are drawn from a ``torch.Generator`` seeded with
     it; without, they are left for ``load_state_dict``.
     """
     name = cfg.data.model_name
-    if name == "pwclite":
-        model = pwclite.PWCLite()
-        if seed is not None:
-            pwclite.init_weights(model,
-                                 torch.Generator().manual_seed(int(seed)))
-        return model.to(device).eval()
-    if name == "sweep":
-        model = SweepModel()
-        if seed is not None:
-            init_weights(model, torch.Generator().manual_seed(int(seed)))
-        return model.to(device).eval()
-    if name != "base":
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    if name not in _BUILDERS:
+        raise ValueError(f"unknown model {name!r}")
+    build, init = _BUILDERS[name]
+    model = build(cfg)
+    if seed is not None:
+        init(model, torch.Generator().manual_seed(int(seed)))
+    return model.to(device).eval()
+
+
+def _base_model(cfg) -> BaseModelNet:
     tpu = cfg.get("tpu", {})
-    dtype = _DTYPES[tpu.get("dtype", "float32")]
-    model = BaseModelNet(
+    return BaseModelNet(
         feature_dim=cfg.var.feature_dim, d=cfg.var.ndepth,
         nmode=cfg.var.nmode, bn_avg=cfg.var.bn_avg,
         sigma_soft_max=cfg.var.sigma_soft_max,
         n_views=int(cfg.var.get("t_win", 1)) + 1,
-        use_lc_prob=cfg.lc.get("use_lc_prob", 0.7), dtype=dtype,
+        use_lc_prob=cfg.lc.get("use_lc_prob", 0.7),
+        dtype=_DTYPES[tpu.get("dtype", "float32")],
         convbn2d=tpu.get("convbn2d", "auto"),
         convcomb_pallas=tpu.get("convcomb_pallas", "auto"),
         combine_pallas=tpu.get("combine_pallas", "auto"),
         sweep_dtype=tpu.get("sweep_dtype", "auto"),
         conv3d_flat=_flag("tpu.conv3d_flat", tpu.get("conv3d_flat", True)),
-        diffhomo=_flag("var.diffhomo", cfg.var.get("diffhomo", True)))
-    if cfg.var.get("sweep_impl", "decomposed") != "decomposed":
-        raise NotImplementedError("the gather sweep is not ported yet "
-                                  "(ROADMAP.md, queue 1)")
-    if seed is not None:
-        gen = torch.Generator().manual_seed(int(seed))
-        init_weights(model, gen)
-    return model.to(device).eval()
+        diffhomo=_flag("var.diffhomo", cfg.var.get("diffhomo", True)),
+        sweep_impl=cfg.var.get("sweep_impl", "decomposed"))
+
+
+#: model_name -> (constructor from the config, weight init(model, generator))
+_BUILDERS = {
+    "base": (_base_model, init_weights),
+    "pwclite": (lambda cfg: pwclite.PWCLite(), pwclite.init_weights),
+    "sweep": (lambda cfg: SweepModel(), init_weights),
+    "default": (lambda cfg: DefaultModel(d=cfg.var.ndepth), init_weights),
+    "packnet": (lambda cfg: packnet.PackNetModel(d=cfg.var.ndepth),
+                packnet.init_weights),
+}

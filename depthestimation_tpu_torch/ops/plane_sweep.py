@@ -1,13 +1,19 @@
-"""Decomposed plane sweep + diagonal feature warp, batched over B*V views.
+"""Plane sweep + diagonal feature warp, batched over B*V views.
 
-Port of the decomposed path of ``depthestimation_tpu/ops/plane_sweep.py``
+Port of ``depthestimation_tpu/ops/plane_sweep.py``. The decomposed path
 (``_homography_resample``, ``_affine_band_mats``, ``_sweep_mats`` and the
-body of ``_pallas_sweep_local``). For fronto-parallel planes the depth-d
+body of ``_pallas_sweep_local``): for fronto-parallel planes the depth-d
 homography factors into one depth-independent homography resample by
 ``A = K R K^-1`` (stage 1, a 4-tap bilinear gather) and, per depth, a
 separable bilinear resample ``Ry_d . src . Rx_d^T`` (stage 2: banded
 matmuls, ``ops/sweep_kernel.py``). Stage 1 and the band matrices are f32,
-as in JAX at HIGHEST precision.
+as in JAX at HIGHEST precision. The cost volume alone
+(``plane_sweep_volume_decomposed``) is the einsum form of stage 2 in the
+sweep's dtype, as JAX computes it in XLA, outside its kernel.
+
+The gather path (``sweep_impl: "gather"``, JAX ``plane_sweep_volume`` and
+``plane_sweep_and_warp``): every depth plane's homography pixels
+(``homography_pixels``) sampled by four bilinear taps, f32.
 """
 
 from __future__ import annotations
@@ -124,6 +130,16 @@ def sweep_mats(d_candi, rot, tra, intr, h: int, w: int):
     return affine_band_mats(d_candi, m, h, w, dxy)
 
 
+def _views(poses: torch.Tensor, intr: torch.Tensor, v: int):
+    """The source views' (rot [N, 3, 3], tra [N, 3], intr [N, 3, 3]) of
+    poses [B, T, 4, 4] (last view = reference), N = B*v, f32."""
+    n = poses.shape[0] * v
+    f32 = torch.float32
+    return (poses[:, :-1, :3, :3].reshape(n, 3, 3).to(f32),
+            poses[:, :-1, :3, 3].reshape(n, 3).to(f32),
+            intr.to(f32).repeat_interleave(v, dim=0))
+
+
 def plane_sweep_and_warp_batched(feat_all: torch.Tensor,
                                  feat_raw: torch.Tensor,
                                  d_candi: torch.Tensor, poses: torch.Tensor,
@@ -145,9 +161,7 @@ def plane_sweep_and_warp_batched(feat_all: torch.Tensor,
     v = t - 1
     d = feat_raw.shape[2]
     n = b * v
-    rots = poses[:, :-1, :3, :3].reshape(n, 3, 3)
-    tras = poses[:, :-1, :3, 3].reshape(n, 3)
-    intr_n = intr.repeat_interleave(v, dim=0)
+    rots, tras, intr_n = _views(poses, intr, v)
     f32 = torch.float32
     fa_a = homography_resample(
         feat_all[:, :-1].reshape(n, c1, h, w).to(f32), rots, intr_n)
@@ -211,3 +225,102 @@ def warp_feature_volume_batched(feat_raw: torch.Tensor,
     for k in range(4):      # channel d at plane d's taps: the diagonal
         out = out + torch.gather(flat, -1, idx[k]) * wt[k]
     return out.reshape(b, t, d, h, w)
+
+
+def plane_sweep_volume_decomposed(feat_all: torch.Tensor,
+                                  d_candi: torch.Tensor, poses: torch.Tensor,
+                                  intr: torch.Tensor, sigma: float,
+                                  dtype=torch.float32) -> torch.Tensor:
+    """The decomposed cost volume alone (JAX
+    ``plane_sweep_volume_decomposed`` vmapped over the batch).
+
+    feat_all [B, T, C, h, w] (last view = reference); poses [B, T, 4, 4];
+    intr [B, 3, 3]. Stage 2's two products and the difference run in
+    ``dtype``; the squares are summed in f32. Returns [B, D, h, w] f32.
+    """
+    b, t, c, h, w = feat_all.shape
+    v = t - 1
+    d = d_candi.numel()
+    rots, tras, intr_n = _views(poses, intr, v)
+    fa_a = homography_resample(
+        feat_all[:, :-1].reshape(b * v, c, h, w).to(torch.float32), rots,
+        intr_n)
+    rx, ry = sweep_mats(d_candi, rots, tras, intr_n, h, w)
+    tmp = torch.einsum("nchw,ndxw->ncdhx", fa_a.to(dtype), rx.to(dtype))
+    warped = torch.einsum("ncdhx,ndyh->ncdyx", tmp, ry.to(dtype))
+    ref = feat_all[:, -1].to(dtype).repeat_interleave(v, dim=0)
+    diff = (warped - ref[:, :, None]).to(torch.float32)
+    cost = (diff * diff).sum(dim=1)                          # [N, D, h, w]
+    return cost.reshape(b, v, d, h, w).sum(dim=1) / sigma
+
+
+def _gather_setup(feat_all, d_candi, poses, intr, unit_rays):
+    """Shared by the gather forms: (source views' padded flat features
+    [N, C, (h+2)(w+2)], tap indices and weights [4, N, D, hw], the
+    reference's features [N, C, hw])."""
+    b, t, c, h, w = feat_all.shape
+    v = t - 1
+    f32 = torch.float32
+    rots, tras, intr_n = _views(poses, intr, v)
+    pix = homography_pixels(
+        torch.as_tensor(d_candi, dtype=f32, device=feat_all.device), rots,
+        tras, intr_n, unit_rays.to(f32).repeat_interleave(v, dim=0))
+    idx, wt = _tap_indices_weights(pix, h, w)
+    flat = _pad_flat(feat_all[:, :-1].reshape(b * v, c, h, w).to(f32))
+    ref = feat_all[:, -1].reshape(b, c, h * w).to(f32).repeat_interleave(
+        v, dim=0)
+    return flat, idx, wt, ref
+
+
+def _gather_cost(flat, idx, wt, ref, b: int, v: int, h: int, w: int,
+                 sigma: float):
+    acc = 0.0
+    for k in range(4):
+        acc = acc + fast_take(flat, idx[k]) * wt[k][:, None]  # [N,C,D,hw]
+    diff = acc - ref[:, :, None]
+    cost = (diff * diff).sum(dim=1)                          # [N, D, hw]
+    return cost.reshape(b, v, -1, h, w).sum(dim=1) / sigma
+
+
+def plane_sweep_volume(feat_all: torch.Tensor, d_candi: torch.Tensor,
+                       poses: torch.Tensor, intr: torch.Tensor,
+                       unit_rays: torch.Tensor,
+                       sigma: float) -> torch.Tensor:
+    """The gather cost volume (JAX ``plane_sweep_volume``, L2, vmapped over
+    the batch). feat_all [B, T, C, h, w] (last view = reference); poses
+    [B, T, 4, 4]; intr [B, 3, 3]; unit_rays [B, 3, h*w]. Returns
+    [B, D, h, w] f32."""
+    b, t, c, h, w = feat_all.shape
+    flat, idx, wt, ref = _gather_setup(feat_all, d_candi, poses, intr,
+                                       unit_rays)
+    return _gather_cost(flat, idx, wt, ref, b, t - 1, h, w, sigma)
+
+
+def plane_sweep_and_warp(feat_all: torch.Tensor, feat_raw: torch.Tensor,
+                         d_candi: torch.Tensor, poses: torch.Tensor,
+                         intr: torch.Tensor, unit_rays: torch.Tensor,
+                         sigma: float):
+    """The fused gather sweep (JAX ``plane_sweep_and_warp`` vmapped over the
+    batch): the source views' cost volume and diagonal warp from one set
+    of tap indices; the reference view's warp is ``feat_raw`` itself.
+
+    feat_all [B, T, C1, h, w]; feat_raw [B, T, D, h, w]; poses
+    [B, T, 4, 4]; intr [B, 3, 3]; unit_rays [B, 3, h*w]. Returns
+    (cost [B, D, h, w] f32, warped [B, T, D, h, w] f32)."""
+    b, t, c1, h, w = feat_all.shape
+    v = t - 1
+    d = feat_raw.shape[2]
+    if d != d_candi.numel():
+        raise ValueError(f"the diagonal warp needs C == D: {d} feature "
+                         f"channels, {d_candi.numel()} depth planes")
+    flat, idx, wt, ref = _gather_setup(feat_all, d_candi, poses, intr,
+                                       unit_rays)
+    cost = _gather_cost(flat, idx, wt, ref, b, v, h, w, sigma)
+    flat_r = _pad_flat(feat_raw[:, :-1].reshape(b * v, d, h, w).to(
+        torch.float32))
+    diag = 0.0
+    for k in range(4):      # channel d at plane d's taps: the diagonal
+        diag = diag + wt[k] * torch.gather(flat_r, -1, idx[k])
+    warped = torch.cat([diag.reshape(b, v, d, h, w),
+                        feat_raw[:, -1:].to(torch.float32)], dim=1)
+    return cost, warped

@@ -8,9 +8,11 @@ It runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU
 (there is no device flag and no fallback). Checkpoints and the
 ``{exp}.json`` results go under ``outputs/checkpoints/{exp}`` in the
 working directory. With ``--synthetic``, or when ``data.dataset_path`` is
-not a directory, it trains on ``SyntheticStereoVideoDataset``; the real
-KITTI / ILIM loaders are not ported yet (ROADMAP.md, queue 1: "Real-data
-loaders"). Single process: DDP waits for queue 1's "Multi-GPU".
+not a directory, it trains on ``SyntheticStereoVideoDataset``; otherwise
+on ``IlimVideoDataset`` when ``data.dataset_split`` names "ilim" or
+"sweep", else on ``KittiVideoDataset`` (both read PNGs without Pillow and
+project the velodyne with ``native/kittiops.cpp``, built by ``g++`` at
+first use). Single process: DDP waits for queue 1's "Multi-GPU".
 """
 
 from __future__ import annotations
@@ -40,26 +42,34 @@ def parse_args(argv=None):
 
 
 def build_loaders(cfg, use_synthetic: bool):
-    """(train, val) ``BatchScheduler``s of synthetic video (train: max(2B,
-    4) trajectories of 4 frames, seed 1; val: B of 2 frames, seed 2), as
-    the JAX CLI builds them."""
+    """(train, val) ``BatchScheduler``s, chosen as the JAX CLI chooses:
+    synthetic video under ``--synthetic`` or without a dataset directory
+    (train: max(2B, 4) trajectories of 4 frames, seed 1; val: B of 2
+    frames, seed 2), the ILIM / sweep drives when ``data.dataset_split``
+    names "ilim" or "sweep", else the KITTI raw drives (split "train" /
+    "test")."""
     from depthestimation_tpu_torch.data.scheduler import BatchScheduler
     bs = int(cfg.train.batch_size)
-    if not (use_synthetic or not os.path.isdir(cfg.data.dataset_path)):
-        raise NotImplementedError(
-            f"the real-data loaders ({cfg.data.dataset_path}) are not ported "
-            "yet (ROADMAP.md, queue 1: \"Real-data loaders\"); pass "
-            "--synthetic")
-    from depthestimation_tpu_torch.data.video_synthetic import (
-        SyntheticStereoVideoDataset)
-    w, h = cfg.var.crop_w, cfg.var.img_size[1]
-    common = dict(h=h, w=w, t_win=cfg.var.t_win, d_min=cfg.var.d_min,
-                  d_max=cfg.var.d_max, ndepth=cfg.var.ndepth,
-                  qpower=cfg.var.qpower)
-    train_ds = SyntheticStereoVideoDataset(n_traj=max(bs * 2, 4),
-                                           traj_len=4, seed=1, **common)
-    val_ds = SyntheticStereoVideoDataset(n_traj=bs, traj_len=2, seed=2,
-                                         **common)
+    split = cfg.data.dataset_split
+    if use_synthetic or not os.path.isdir(cfg.data.dataset_path):
+        from depthestimation_tpu_torch.data.video_synthetic import (
+            SyntheticStereoVideoDataset)
+        w, h = cfg.var.crop_w, cfg.var.img_size[1]
+        common = dict(h=h, w=w, t_win=cfg.var.t_win, d_min=cfg.var.d_min,
+                      d_max=cfg.var.d_max, ndepth=cfg.var.ndepth,
+                      qpower=cfg.var.qpower)
+        train_ds = SyntheticStereoVideoDataset(n_traj=max(bs * 2, 4),
+                                               traj_len=4, seed=1, **common)
+        val_ds = SyntheticStereoVideoDataset(n_traj=bs, traj_len=2, seed=2,
+                                             **common)
+    elif "ilim" in split or "sweep" in split:
+        from depthestimation_tpu_torch.data.ilim import IlimVideoDataset
+        train_ds = IlimVideoDataset(cfg, split="train")
+        val_ds = IlimVideoDataset(cfg, split="test")
+    else:
+        from depthestimation_tpu_torch.data.kitti import KittiVideoDataset
+        train_ds = KittiVideoDataset(cfg, split="train")
+        val_ds = KittiVideoDataset(cfg, split="test")
     qmax = int(cfg.train.get("qmax", 4))
     # cfg.var.mload: a spawned loader process; synthetic data asked for by
     # --synthetic is cheap enough to stay in-process

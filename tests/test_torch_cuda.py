@@ -65,7 +65,8 @@ _CC_SHAPES = [(16, 8, 5, 32, 12, 16), (16, 8, 32, 1, 7, 9),
               (40, 20, 8, 16, 9, 11), (3, 1, 5, 8, 6, 10),
               (64, 64, 32, 32, 64, 96), (8, 4, 32, 32, 9, 23),
               (1, 1, 16, 1, 5, 7), (6, 3, 17, 11, 3, 33),
-              (24, 24, 5, 1, 7, 19), (20, 20, 32, 20, 6, 24)]
+              (24, 24, 5, 1, 7, 19), (20, 20, 32, 20, 6, 24),
+              (128, 64, 3, 32, 64, 96)]     # exp3's first layer, C3 -> F32
 
 
 @pytest.mark.parametrize("n,depth,c,f,h,w", _CC_SHAPES)
@@ -299,7 +300,8 @@ def test_sweep_call_launches_only_its_kernels(dev, direction):
 _CC_BWD_SHAPES = [(16, 8, 5, 32, 12, 16), (16, 8, 32, 1, 7, 9),
                   (40, 20, 8, 16, 9, 11), (3, 1, 5, 8, 6, 10),
                   (64, 64, 32, 32, 64, 96), (8, 4, 32, 32, 9, 23),
-                  (1, 1, 16, 1, 5, 7), (6, 3, 17, 11, 3, 33)]
+                  (1, 1, 16, 1, 5, 7), (6, 3, 17, 11, 3, 33),
+                  (128, 64, 3, 32, 64, 96)]
 
 
 @pytest.mark.parametrize("n,depth,c,f,h,w", _CC_BWD_SHAPES)

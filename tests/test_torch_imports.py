@@ -1,6 +1,8 @@
 """The port is self-contained: importing depthestimation_tpu_torch and
-every module under it loads neither JAX, flax nor the JAX package, and
-builds nothing (the CUDA kernels build at first use)."""
+every module under it loads neither JAX, flax nor the JAX package, nor
+Pillow or OpenCV (the data path reads PNGs itself), and builds nothing
+(the CUDA kernels and the native data-path library build at first
+use)."""
 
 import json
 import os
@@ -16,12 +18,16 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+from depthestimation_tpu_torch.native import kittiops
 from depthestimation_tpu_torch.ops import cuda_lib
 print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m in sys.modules if m.split(".")[0] in
                       ("jax", "jaxlib", "flax", "depthestimation_tpu")),
-    "built": cuda_lib._library is not None}))
+    "imaging": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("PIL", "cv2")),
+    "built": cuda_lib._library is not None,
+    "kittiops_built": kittiops._lib is not None}))
 """
 
 
@@ -43,11 +49,15 @@ def test_port_imports_no_jax():
                  "data.video_synthetic", "data.scheduler", "ops.metrics",
                  "utils.visual", "train", "lc.process_real",
                  "runtime.planner_runtime", "runtime.sensor_sampling",
-                 "models.sweep", "losses.sweep_loss", "trainer.sweep"):
+                 "models.sweep", "losses.sweep_loss", "trainer.sweep",
+                 "native.kittiops", "data.velodyne", "data.image",
+                 "data.kitti", "data.ilim", "models.packnet"):
         assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]
     assert got["built"] is False
+    assert got["imaging"] == [], f"the port pulled in {got['imaging']}"
+    assert got["kittiops_built"] is False
 
 
 def test_sources_name_no_jax():
@@ -62,6 +72,11 @@ def test_sources_name_no_jax():
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     assert len(paths) >= 52
     foreign = ("jax", "jaxlib", "flax", "optax", "depthestimation_tpu")
+    # the card's host has neither: the data path reads PNGs itself
+    # (utils/visual.py's --viz panels import cv2 where they run)
+    imaging = ("PIL", "cv2")
+    data_path = [os.path.join(ROOT, "depthestimation_tpu_torch", d)
+                 for d in ("data", "native")]
     for path in paths:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -72,6 +87,9 @@ def test_sources_name_no_jax():
                 names = [node.module or ""]
             for n in names:
                 assert n.split(".")[0] not in foreign, (path, n)
+                if path.startswith(tuple(data_path)) or path.endswith(
+                        "chip_smoke.py"):
+                    assert n.split(".")[0] not in imaging, (path, n)
 
 
 def test_ctypes_signatures_match_the_c_launchers():

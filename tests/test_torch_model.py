@@ -97,11 +97,16 @@ def test_slice_f32_matches_jax(batch, variables, nmode, with_prev):
 
 
 def test_other_nmodes_raise():
+    """Every nmode of the JAX package builds (tests/test_torch_nmodes.py
+    holds their forwards to JAX's); exp8 has no forward, as in JAX, and a
+    name JAX does not know raises at construction."""
     for nmode in ("default", "exp2", "exp3", "exp8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BaseModelNet(FD, D, nmode)
-    # nmode lc is ported for diffhomo false (all its configs); with the
-    # sweep it needs the cost volume alone
-    with pytest.raises(NotImplementedError, match="Other nmodes"):
-        BaseModelNet(FD, D, "lc")
+        assert BaseModelNet(FD, D, nmode).nmode == nmode
+    assert BaseModelNet(FD, D, "lc").diffhomo
     assert BaseModelNet(FD, D, "lc", diffhomo=False).nmode == "lc"
+    with pytest.raises(ValueError, match="exp8"):
+        BaseModelNet(FD, D, "exp8")(tsyn.to_device(
+            tsyn.make_batch(batch=1, t_win=1, h=H, w=W, d_min=3.0,
+                            d_max=30.0, ndepth=D, seed=1)[0], "cpu"))
+    with pytest.raises(ValueError, match="unknown nmode"):
+        BaseModelNet(FD, D, "exp4")

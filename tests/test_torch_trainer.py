@@ -392,7 +392,14 @@ def test_unported_paths_raise(tmp_path):
     tr = DefaultTrainer(0, get_model(cfg, "cpu", seed=0), get_loss(cfg),
                         init_logger("t_unported"), str(tmp_path), lc_cfg)
     assert tr.real_lc is None and not tr.lc.initialized
+    # the real-data loaders are ported (tests/test_torch_kitti.py): a
+    # dataset directory takes the KITTI loader, which needs its split file,
+    # as JAX's CLI does
     real = load_config(CONFIG)
     real.data.dataset_path = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="Real-data loaders"):
+    with pytest.raises(FileNotFoundError, match="training.txt"):
         ttrain.build_loaders(real, False)
+    jreal = jload(CONFIG)
+    jreal.data.dataset_path = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="training.txt"):
+        jtrain.build_loaders(jreal, False)
