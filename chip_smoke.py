@@ -143,7 +143,25 @@ Phases, one line each (a failed phase exits non-zero before the result):
    to the decomposed sweep's from the same weights; exp8's forward
    raising ``ValueError``; one f32 step of ``DefaultModel`` and of
    ``PackNetModel`` at B=2 with no kernel launched. Phase 3 also holds
-   exp3's first Base3D layer (C=3 -> F=32) forward and backward.
+   exp3's first Base3D layer (C=3 -> F=32) forward and backward;
+13. data-parallel training (``parallel/mesh.py``), work files in
+   ``build/phase13``: (a) phase 6's B=8 step in an NCCL group of one
+   (a ``FileStore``) bit-equal to the step without a group, the same
+   launches, with ``torch.use_deterministic_algorithms`` on; and
+   ``init_distributed`` under ``torchrun``'s variables joining NCCL on
+   ``cuda:0``; (b) two spawned ranks on the one card over gloo, B=4 each
+   of the same batch: the ranks' parameters bit-equal, each rank's
+   launches the B=8 step's, the global loss and each group's gradient and
+   parameters within 1e-3 plus 3x the single-process B=8 step's motion
+   under a 1e-6 image change; per-rank step ms beside one process's B=8
+   and B=4 steps in the same call, and the all-reduces' host split; (c)
+   the same over NCCL, one rank a card, where two cards are visible (else
+   a line saying it was not run); (d) ``train.main`` in two spawned ranks
+   on the card (gloo) on the bf16 ``synthetic_tpu.json`` copy at ``-b 4``
+   a rank with 15 trajectories (8 and 4 steps: both run 4), one epoch and
+   its validation: equal steps, bit-equal parameters, one ``_ckpt`` from
+   rank 0, the same five metrics; step ms, epoch s and loader wait a
+   rank.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -3138,6 +3156,509 @@ def phase_real_data(card):
     phase_nmodes(card, root, ksplit)
 
 
+# ------------------------------------------------------------ phase 13
+
+#: phase 13's step: phase 6's B=8 exp7 bf16 384x256 D=64 fused step
+P13_W, P13_H, P13_B = 384, 256, 8
+#: batch entries every item shares (no leading batch axis to split)
+_P13_SHARED = ("d_candi", "d_candi_up", "T_left2right")
+#: phase 13d's CLI run: 15 training trajectories at -b 4 per rank (rank 0
+#: loads 8, rank 1 loads 7: 2 batches against 1)
+P13_TRAJ, P13_CLI_B = 15, 4
+#: each rank's launches a step: phase 6's (sweep, Base3D, convbn2d,
+#: tap_combine; forward and backward)
+P13_WANT = (2, 2, 16, 16, 76, 76, 0, 0)
+
+
+def _rank_half(d: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s items of a batch dict of card tensors."""
+    import torch
+    n = P13_B // world
+    return {k: (v[rank * n:(rank + 1) * n] if torch.is_tensor(v) and
+                v.dim() >= 1 and v.shape[0] == P13_B and
+                k not in _P13_SHARED else v) for k, v in d.items()}
+
+
+def _p13_group(backend: str, rank: int, world: int, work: str, tag: str):
+    """Join phase 13's group (a ``FileStore`` ``store_{tag}`` in ``work``,
+    one for each group) on the card this rank runs on: ``cuda:rank`` for
+    NCCL, ``cuda:0`` for gloo (the ranks share one card)."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = dist.FileStore(os.path.join(work, f"store_{tag}"), world)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, **kw)
+    return dev
+
+
+def _p13_step_rank(rank: int, backend: str, world: int, work: str) -> None:
+    """Phase 13b / 13c, one rank: the first step of phase 6's B=8 batch
+    from ``base.pt``'s weights on this rank's half, then 4 more timed by
+    CUDA events and 2 with each all-reduce split on the host clock."""
+    import torch
+    import torch.distributed as dist
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+    dev = _p13_group(backend, rank, world, work, backend)
+    try:
+        cfg = cfg_for(64, 64, P13_W, P13_H, "bfloat16", nmode="exp7",
+                      batch=P13_B // world)
+        step = make_train_step(get_loss(cfg))
+        mi, gt = _train_batch(P13_B, P13_W, P13_H, dev)
+        mi, gt = _rank_half(mi, rank, world), _rank_half(gt, rank, world)
+        model = get_model(cfg, dev)
+        model.load_state_dict(torch.load(os.path.join(work, "base.pt"),
+                                         map_location=dev))
+        state = init_state(model, cfg)
+        reset_counts()
+        state, loss, _ = step(state, mi, mi, gt, gt)
+        counts = launch_counts()
+        out = {"loss": loss.item(), "counts": counts,
+               "grads": {k: v.cpu() for k, v in _grad_groups(model).items()},
+               "params": {k: p.detach().cpu()
+                          for k, p in model.named_parameters()}}
+        ms = []
+        for _ in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, loss, _ = step(state, mi, mi, gt, gt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        out["ms"] = ms
+        # two more steps with every all-reduce split on the host clock into
+        # the wait for the card's queue and the collective itself
+        from depthestimation_tpu_torch.parallel import mesh
+        real, calls = mesh.all_reduce_, []
+
+        def timed(t):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            real(t)
+            calls.append((t1 - t0, time.perf_counter() - t1, t.numel()))
+            return t
+        mesh.all_reduce_ = timed
+        try:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, loss, _ = step(state, mi, mi, gt, gt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            mesh.all_reduce_ = real
+        big = max(c[2] for c in calls)
+        out["split"] = {
+            "calls": len(calls) / 2, "wall_ms": 1e3 * wall / 2,
+            "wait_ms": 1e3 * sum(c[0] for c in calls) / 2,
+            "reduce_ms": 1e3 * sum(c[1] for c in calls) / 2,
+            "grad_ms": 1e3 * sum(c[1] for c in calls if c[2] == big) / 2,
+            "grad_elems": big}
+        torch.save(out, os.path.join(work, f"{backend}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _p13_cli_rank(rank: int, world: int, work: str) -> None:
+    """Phase 13d, one rank: ``train.main`` on phase 10's bf16
+    ``synthetic_tpu.json`` copy at ``-b 4`` (``--synthetic``: the thread
+    loader) with 15 training trajectories, one epoch and its validation;
+    the steps' launches and CUDA-event ms, the checkpoint writes."""
+    import torch
+    import torch.distributed as dist
+    from depthestimation_tpu_torch import train as ttrain
+    from depthestimation_tpu_torch.data import video_synthetic as vs
+    from depthestimation_tpu_torch.parallel import mesh
+    from depthestimation_tpu_torch.trainer import checkpoint as ckpt
+    from depthestimation_tpu_torch.trainer import default as tdefault
+    _p13_group("gloo", rank, world, work, "cli")
+    base = vs.SyntheticStereoVideoDataset
+
+    class Uneven(base):
+        def __init__(self, n_traj, seed=0, **kw):
+            super().__init__(n_traj=P13_TRAJ if seed == 1 else n_traj,
+                             seed=seed, **kw)
+
+    steps, saves = [], []
+    real_make, real_save = tdefault.make_train_step, ckpt.save_checkpoint
+
+    def counted_make(loss_fn, lc_fn=None):
+        run = real_make(loss_fn, lc_fn=lc_fn)
+
+        def timed(*a):
+            before = launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = run(*a)
+            ev[1].record()
+            steps.append((tuple(x - y for x, y in
+                                zip(launch_counts(), before)), ev))
+            return out
+        return timed
+
+    def save(*a, **k):
+        saves.append(rank)
+        return real_save(*a, **k)
+
+    vs.SyntheticStereoVideoDataset = Uneven
+    tdefault.make_train_step = counted_make
+    tdefault.ckpt.save_checkpoint = save
+    os.chdir(work)
+    try:
+        path = os.path.join(work, "synthetic_tpu.json")
+        if rank == 0:
+            _phase10_config(work, "synthetic_tpu", 1)
+        mesh.barrier("config")
+        tr = ttrain.main(["--config", path, "-b", str(P13_CLI_B),
+                          "--synthetic"])
+        torch.cuda.synchronize()
+        torch.save({
+            "steps": len(tr._last_epoch_losses),
+            "epoch_length": tr.train_loader.epoch_length(),
+            "launches": [s[0] for s in steps],
+            "ms": [e[0].elapsed_time(e[1]) for _, e in steps],
+            "losses": tr._last_epoch_losses, "metrics": tr.last_metrics,
+            "epoch_seconds": tr.epoch_seconds,
+            "wait_seconds": tr.loader_wait_seconds, "saves": saves,
+            "params": {k: v.cpu() for k, v in
+                       tr.model.state_dict().items()}},
+            os.path.join(work, f"cli_rank{rank}.pt"))
+    finally:
+        vs.SyntheticStereoVideoDataset = base
+        tdefault.make_train_step = real_make
+        tdefault.ckpt.save_checkpoint = real_save
+        dist.destroy_process_group()
+
+
+def _spawn(fn, args, nprocs: int) -> float:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes; a rank
+    that fails fails the phase (``ProcessRaisedException``). Returns the
+    wall seconds."""
+    import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
+    tmp.start_processes(fn, args=args, nprocs=nprocs, join=True,
+                        start_method="spawn")
+    return time.perf_counter() - t0
+
+
+def _same_params(a: dict, b: dict) -> bool:
+    """Two {name: tensor} dicts equal bit for bit."""
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _hold_ranks(tag, results, ref, bounds, want):
+    """The ranks of one data-parallel step against the single-process B=8
+    step: their parameters bit-equal to each other, each rank's launches
+    ``want``, the global loss and each group's gradient and parameters
+    within ``bounds``. Returns the distances."""
+    check(all(_same_params(r["params"], results[0]["params"])
+              for r in results[1:]),
+          f"{tag}: the ranks' parameters differ after the step")
+    for i, r in enumerate(results):
+        check(tuple(r["counts"]) == want,
+              f"{tag} rank {i}: launches {tuple(r['counts'])} != {want}")
+    check(all(r["loss"] == results[0]["loss"] for r in results),
+          f"{tag}: the ranks' global losses differ "
+          f"{[r['loss'] for r in results]}")
+    r0 = results[0]
+    got = {"loss": abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])}
+    got.update({f"grad {g}": _dist(r0["grads"][g].cuda(),
+                                   ref["grads"][g]) for g in ref["grads"]})
+    p0 = {k: v.cuda() for k, v in r0["params"].items()}
+    got.update({f"param {g}": _dist(v, ref["params"][g])
+                for g, v in _groups_of(p0).items()})
+    for k, v in got.items():
+        check(v <= bounds[k], f"{tag} {k}: {v:.4g} from the B=8 step > "
+              f"1e-3 + 3 x its motion under a 1e-6 image change = "
+              f"{bounds[k]:.4g}")
+    return got
+
+
+def _groups_of(params: dict) -> dict:
+    """{name: parameter} -> each group's parameters as one vector (the
+    groups of ``_grad_groups``)."""
+    import torch
+    return {g: torch.cat([v.flatten() for k, v in params.items()
+                          if k.startswith(pre)])
+            for g, pre in (("encoder", "base_encoder."), ("BV head", "conv0"),
+                           ("Base3D", "based_3d."),
+                           ("decoder", "base_decoder."))}
+
+
+def _p13_setup():
+    """Phase 13's shared inputs in a fresh ``build/phase13``: phase 6's
+    B=8 batch, seeded weights (saved for the spawned ranks), the step, and
+    ``one_step(mi)``: one single-process step from those weights with its
+    launches, loss, gradient groups and parameters."""
+    import shutil
+    import types
+
+    import torch
+    from depthestimation_tpu_torch.losses import get_loss
+    from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.parallel.train_step import (
+        init_state, make_train_step)
+
+    work = os.path.join(ROOT, "build", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = torch.device("cuda", 0)
+    cfg = cfg_for(64, 64, P13_W, P13_H, "bfloat16", nmode="exp7",
+                  batch=P13_B)
+    step = make_train_step(get_loss(cfg))
+    mi, gt = _train_batch(P13_B, P13_W, P13_H, dev)
+    base = get_model(cfg, dev, seed=0)
+    torch.save(base.state_dict(), os.path.join(work, "base.pt"))
+
+    def one_step(x=mi):
+        model = get_model(cfg, dev)
+        model.load_state_dict(base.state_dict())
+        before = launch_counts()
+        state, loss, _ = step(init_state(model, cfg), x, x, gt, gt)
+        n = tuple(a - b for a, b in zip(launch_counts(), before))
+        return {"loss": loss.item(), "counts": n,
+                "grads": _grad_groups(model),
+                "params": {k: p.detach().clone()
+                           for k, p in model.named_parameters()}}
+
+    def alone_ms(batch):
+        """The single process's median step ms at ``batch`` (phase 6's
+        batch, or its first ``batch`` items), CUDA events."""
+        c = cfg_for(64, 64, P13_W, P13_H, "bfloat16", nmode="exp7",
+                    batch=batch)
+        x, y = (_rank_half(d, 0, P13_B // batch) for d in (mi, gt))
+        model = get_model(c, dev)
+        model.load_state_dict(base.state_dict())
+        state = init_state(model, c)
+        state, _, _ = step(state, x, x, y, y)
+        return float(np.median([cuda_ms(lambda: step(state, x, x, y, y), 1,
+                                        warmup=0) for _ in range(4)]))
+
+    return types.SimpleNamespace(
+        work=work, dev=dev, mi=mi, one_step=one_step, alone_ms=alone_ms,
+        want=P13_WANT)
+
+
+def _p13_group_of_one(card, p13):
+    """Phase 13a: the B=8 step in an NCCL group of one (a ``FileStore``)
+    against the step without a group, deterministic algorithms on; then
+    ``init_distributed`` under ``torchrun``'s variables. Returns the step
+    without a group."""
+    import contextlib
+    import socket
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from depthestimation_tpu_torch.parallel import mesh
+
+    @contextlib.contextmanager
+    def deterministic():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    want = p13.want
+    with deterministic():
+        plain = p13.one_step()
+        dist.init_process_group(
+            "nccl",
+            store=dist.FileStore(os.path.join(p13.work, "store_a"), 1),
+            rank=0, world_size=1, device_id=p13.dev)
+        try:
+            check(mesh.world() == 1 and dist.get_backend() == "nccl",
+                  "13a: no NCCL group of one")
+            grouped = p13.one_step()
+        finally:
+            dist.destroy_process_group()
+        again = p13.one_step()
+    repeat = (plain["loss"] == again["loss"]
+              and _same_params(plain["params"], again["params"]))
+    same = (grouped["loss"] == plain["loss"]
+            and _same_params(grouped["params"], plain["params"]))
+    check(grouped["counts"] == plain["counts"] == want,
+          f"13a: launches {grouped['counts']} (group of one) vs "
+          f"{plain['counts']} (no group), want {want}")
+    check(same or not repeat, "13a: the step in a group of one differs from "
+          "the single process's, which repeats bit for bit")
+    if not same:    # the single process does not repeat: hold to its spread
+        spread = max(_dist(again["params"][k], plain["params"][k])
+                     for k in plain["params"])
+        off = max(_dist(grouped["params"][k], plain["params"][k])
+                  for k in plain["params"])
+        check(off <= spread, f"13a: group of one {off:.4g} from the single "
+              f"process, further than its own repeat {spread:.4g}")
+    # torchrun's path: RANK / WORLD_SIZE / LOCAL_RANK and a TCP store on
+    # localhost make init_distributed join an NCCL group on cuda:LOCAL_RANK
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got_dev = mesh.init_distributed("cuda")
+        check(got_dev == p13.dev and dist.get_backend() == "nccl"
+              and mesh.world() == 1,
+              f"13a: init_distributed under torchrun's variables gave "
+              f"{got_dev}, {dist.get_backend()}")
+        dist.destroy_process_group()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    held = "bit-equal to" if same else "within the repeat of"
+    print(f"phase 13a: exp7 384x256 D=64 bf16 B=8 step in an NCCL group of "
+          f"one (FileStore) {held} the single process's (loss "
+          f"{grouped['loss']:.6g}, every parameter; the single process "
+          f"repeats {'bit for bit' if repeat else 'not bit for bit'} under "
+          f"torch.use_deterministic_algorithms), launches {grouped['counts']}"
+          f" both; init_distributed under torchrun's variables: NCCL on "
+          f"{got_dev} [{card}]", flush=True)
+    return plain
+
+
+def _p13_reference(p13, plain):
+    """The B=8 step ``plain`` as the ranks' reference, with the bounds:
+    1e-3 plus 3x the most two moved B=8 steps (the images changed by one
+    part in 10^6) lie from it, for the loss and each group's gradient and
+    parameters; and one process's step ms at B=8 and B=4 in this call."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    moved = []
+    for _ in range(2):
+        noise = torch.randn(p13.mi["rgb"].shape, generator=gen,
+                            device=p13.dev)
+        moved.append(p13.one_step(dict(p13.mi, rgb=p13.mi["rgb"]
+                                       * (1 + 1e-6 * noise))))
+    ref = {"loss": plain["loss"], "grads": plain["grads"],
+           "params": _groups_of(plain["params"])}
+
+    def motion(dist_of):
+        return 1e-3 + 3 * max(dist_of(m) for m in moved)
+
+    bounds = {"loss": motion(lambda m: abs(m["loss"] - ref["loss"])
+                             / abs(ref["loss"]))}
+    for g in ref["grads"]:
+        bounds[f"grad {g}"] = motion(lambda m: _dist(m["grads"][g],
+                                                     ref["grads"][g]))
+        bounds[f"param {g}"] = motion(lambda m: _dist(
+            _groups_of(m["params"])[g], ref["params"][g]))
+    del moved
+    alone = {b: p13.alone_ms(b) for b in (8, 4)}
+    torch.cuda.empty_cache()
+    return ref, bounds, alone
+
+
+def _p13_ranks(card, p13, backend, ref, bounds, alone):
+    """Phase 13b (gloo, the two ranks on one card) or 13c (NCCL, one rank
+    a card): two spawned ranks at B=4 each against the B=8 step."""
+    import torch
+    tag, where = (("13b", "on one card over gloo") if backend == "gloo"
+                  else ("13c", "on cuda:0 and cuda:1 over NCCL"))
+    wall = _spawn(_p13_step_rank, (backend, 2, p13.work), 2)
+    res = [torch.load(os.path.join(p13.work, f"{backend}_rank{r}.pt"))
+           for r in range(2)]
+    got = _hold_ranks(tag, res, ref, bounds, p13.want)
+    ms = [round(float(np.median(r["ms"])), 3) for r in res]
+    held = ", ".join(f"{k} {v:.4g} (bound {bounds[k]:.4g})"
+                     for k, v in got.items())
+    split = "; ".join(
+        f"rank {i}: {r['split']['calls']:.0f} all-reduces a step, "
+        f"{r['split']['wall_ms']:.3f} ms a step of which waiting for the "
+        f"card before them {r['split']['wait_ms']:.3f}, in them "
+        f"{r['split']['reduce_ms']:.3f} (the gradient's "
+        f"{r['split']['grad_elems']} floats {r['split']['grad_ms']:.3f})"
+        for i, r in enumerate(res))
+    print(f"phase {tag}: two ranks {where}, B=4 each of the B=8 batch: "
+          f"parameters bit-equal across ranks, launches per rank "
+          f"{tuple(res[0]['counts'])}; from the single-process B=8 step: "
+          f"{held}; step ms median per rank (CUDA events, steps 2-5) {ms} "
+          f"(one process alone in this call: B=8 {alone[8]:.3f}, B=4 "
+          f"{alone[4]:.3f}); host split of 2 more steps: {split}; spawn to "
+          f"join {wall:.3f} s [{card}]", flush=True)
+
+
+def _p13_cli(card, work):
+    """Phase 13d: ``train.main`` in two spawned ranks on the card (gloo)."""
+    import torch
+    want = P13_WANT
+    wall_d = _spawn(_p13_cli_rank, (2, work), 2)
+    cli = [torch.load(os.path.join(work, f"cli_rank{r}.pt"))
+           for r in range(2)]
+    lengths = [c["epoch_length"] for c in cli]
+    check(lengths == [8, 4], f"13d: epoch lengths {lengths}, want [8, 4]")
+    check(all(c["steps"] == min(lengths) for c in cli),
+          f"13d: steps {[c['steps'] for c in cli]}, want {min(lengths)} on "
+          "each rank")
+    check(all(s == want for c in cli for s in c["launches"]),
+          f"13d: launches {[c['launches'] for c in cli]}")
+    check(cli[0]["losses"] == cli[1]["losses"]
+          and all(np.isfinite(cli[0]["losses"])),
+          f"13d: global losses {[c['losses'] for c in cli]}")
+    check(_same_params(cli[0]["params"], cli[1]["params"]),
+          "13d: the ranks' parameters differ after the epoch")
+    check(cli[0]["saves"] == [0] and cli[1]["saves"] == [],
+          f"13d: checkpoint writes rank 0 {cli[0]['saves']}, rank 1 "
+          f"{cli[1]['saves']}")
+    saved = sorted(os.listdir(os.path.join(work, "outputs", "checkpoints",
+                                           "synthetic_tpu")))
+    check([f for f in saved if f.endswith("_ckpt")] == ["synthetic_tpu_ckpt"],
+          f"13d: checkpoints {saved}")
+    check(cli[0]["metrics"] == cli[1]["metrics"]
+          and len(cli[0]["metrics"]) == 5
+          and all(np.isfinite(cli[0]["metrics"])),
+          f"13d: metrics {[c['metrics'] for c in cli]}")
+    ms_d = [float(np.median(c["ms"])) for c in cli]
+    wait = [c["wait_seconds"] / c["epoch_seconds"] for c in cli]
+    print(f"phase 13d: train.main in two ranks on one card over gloo, "
+          f"synthetic_tpu.json bf16 384x256 -b 4 per rank, 15 trajectories "
+          f"(epoch lengths {lengths}): {min(lengths)} steps on each rank, "
+          f"launches per step {want}, losses "
+          f"{[round(x, 4) for x in cli[0]['losses']]}, parameters bit-equal, "
+          f"one _ckpt (rank 0), validation "
+          f"{[round(x, 4) for x in cli[0]['metrics']]} on both; step ms "
+          f"median per rank {[round(x, 3) for x in ms_d]} (CUDA events), "
+          f"epoch s {[round(c['epoch_seconds'], 3) for c in cli]}, loader "
+          f"wait share {[round(100 * x, 1) for x in wait]}%; spawn to join "
+          f"{wall_d:.3f} s [{card}]", flush=True)
+
+
+def phase_data_parallel(card):
+    """Phase 13: data-parallel training (``parallel/mesh.py``) of phase
+    6's B=8 exp7 bf16 step and of the CLI, in ``build/phase13``."""
+    import torch
+    t0 = time.perf_counter()
+    p13 = _p13_setup()
+    plain = _p13_group_of_one(card, p13)
+    ref, bounds, alone = _p13_reference(p13, plain)
+    del plain
+    _p13_ranks(card, p13, "gloo", ref, bounds, alone)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        _p13_ranks(card, p13, "nccl", ref, bounds, alone)
+    else:
+        print(f"phase 13c: not run: {n_cards} CUDA device visible, one rank "
+              f"per card over NCCL needs two", flush=True)
+    _p13_cli(card, p13.work)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3177,6 +3698,7 @@ def main() -> int:
         phase_lc_real_train(card)
         phase_sweep_train(card)
         phase_real_data(card)
+        phase_data_parallel(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -81,6 +81,7 @@ from depthestimation_tpu_torch.models.layers import Conv, avg_pool, leaky_relu
 from depthestimation_tpu_torch.ops.plane_sweep import (
     plane_sweep_and_warp, plane_sweep_and_warp_batched, plane_sweep_volume,
     plane_sweep_volume_decomposed, warp_feature_volume_batched)
+from depthestimation_tpu_torch.parallel import mesh
 from depthestimation_tpu_torch.utils import precision
 
 NMODES = ("default", "exp2", "exp3", "exp7", "exp7_lc", "lc", "exp8")
@@ -224,7 +225,9 @@ class BaseModelNet(nn.Module):
         probability ``1 - use_lc_prob``: one Bernoulli draw per forward from
         ``generator``, on its own device (``base_model.py:526-536``). No
         draw when ``prev_lc`` is None (the log-uniform default) or in
-        eval."""
+        eval. JAX draws it once for the global batch, so in a
+        data-parallel group every rank takes rank 0's draw
+        (``mesh.broadcast_``)."""
         uniform = self._prev_or_uniform(None, like, log=True)
         if prev_lc is None:
             return uniform
@@ -233,8 +236,8 @@ class BaseModelNet(nn.Module):
         if generator is None:
             raise ValueError("a train-mode forward with prev_lc draws the "
                              "prev_lc drop: pass a torch.Generator")
-        keep = torch.rand((), generator=generator,
-                          device=generator.device).item() < self.use_lc_prob
+        u = torch.rand((), generator=generator, device=generator.device)
+        keep = mesh.broadcast_(u).item() < self.use_lc_prob
         return prev_lc if keep else uniform
 
     def forward(self, model_input: dict,

@@ -8,6 +8,12 @@ auto-names (``Conv_0``, ``BatchNorm_0``, ...), so a parameter's
 
 ``dtype`` is the compute dtype (bf16 halves the bytes); parameters stay
 f32 and are cast at use, as in flax.
+
+In a data-parallel group of more than one rank (``parallel/mesh.py``),
+BatchNorm takes the statistics of the global batch: the per-rank sums and
+counts are all-reduced before the mean and variance are formed, as XLA
+does on JAX's batch-sharded mesh. Without such a group no collective is
+called and every result is what a single process computes.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from depthestimation_tpu_torch.ops.convbn2d_kernel import (
     convbn2d_block, convbn2d_block_plain)
 from depthestimation_tpu_torch.ops.convcomb_kernel import (
     convbn_block, convbn_block_plain, depth_combine, pack_wm)
+from depthestimation_tpu_torch.parallel import mesh
 
 
 def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -115,13 +122,21 @@ class _BNTrain(torch.autograd.Function):
     ``dx = g a + x b2 + c2`` with per-channel f32 coefficients, applied in
     the input's dtype. ``mean`` and ``var`` are the batch statistics of
     ``x`` (computed outside, without a graph): the closed form already
-    carries their dependence on ``x``."""
+    carries their dependence on ``x``.
+
+    ``count``: None for statistics of this tensor alone; else the global
+    batch's count, over which ``mean`` and ``var`` were taken. Then the
+    backward all-reduces its two per-channel sums for ``dx`` (the global
+    statistics depend on every rank's items), while the scale's and the
+    bias's gradients stay this rank's sums, which ``all_reduce_grads``
+    adds up."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, mean, var, eps):
+    def forward(ctx, x, scale, bias, mean, var, eps, count):
         rstd = torch.rsqrt(var + eps)
         a = rstd * scale
         ctx.save_for_backward(x, mean, rstd, scale)
+        ctx.count = count
         return x * _bcast(a, x) + _bcast(bias - mean * a, x)
 
     @staticmethod
@@ -135,11 +150,28 @@ class _BNTrain(torch.autograd.Function):
             shape)
         sum_g = gf.sum(dim=dims)
         sum_gx = (gf * xhat).sum(dim=dims)
+        tot_g, tot_gx = sum_g, sum_gx
+        if ctx.count is not None:
+            tot = mesh.all_reduce_(torch.cat([sum_g, sum_gx]))
+            tot_g, tot_gx = tot.split(sum_g.numel())
+            n = ctx.count
         a = scale * rstd
-        b2 = -a * (sum_gx / n) * rstd
-        c2 = -a * (sum_g / n) - b2 * mean
+        b2 = -a * (tot_gx / n) * rstd
+        c2 = -a * (tot_g / n) - b2 * mean
         dx = g * _bcast(a, g) + x * _bcast(b2, x) + _bcast(c2, x)
-        return dx.to(x.dtype), sum_gx, sum_g, None, None, None
+        return dx.to(x.dtype), sum_gx, sum_g, None, None, None, None
+
+
+def _global_sums(stats: torch.Tensor, count: float):
+    """(sums, count) of the global batch from this rank's per-channel sums
+    ``stats`` [C, k] and ``count``: one all-reduce, differentiable in the
+    sums (``mesh.all_reduce_sum``), the count a 0-d f32 tensor. Unchanged
+    without a group of more than one."""
+    if mesh.world() == 1:
+        return stats, count
+    flat = mesh.all_reduce_sum(torch.cat(
+        [stats.reshape(-1), stats.new_full((1,), count)]))
+    return flat[:-1].reshape(stats.shape), flat[-1]
 
 
 class BatchNorm(nn.Module):
@@ -154,6 +186,8 @@ class BatchNorm(nn.Module):
     channel axis (``layers.py:363-378, 509-510``); the normalization is
     ``y * a + b`` in the input's dtype with per-channel f32 ``a, b``, and
     its backward the closed form of ``bn_train_apply`` (``_BNTrain``).
+    In a data-parallel group the batch is the global one (module
+    docstring); the running statistics then update from its values.
     """
 
     def __init__(self, features: int, track_running_stats: bool = False,
@@ -168,13 +202,15 @@ class BatchNorm(nn.Module):
             self.register_buffer("running_var", torch.ones(features))
 
     @torch.no_grad()
-    def _update_running(self, mean, var, count: float):
-        unbiased = var * (count / max(count - 1.0, 1.0))
+    def _update_running(self, mean, var, count):
+        """``count``: a float, or the global count as a 0-d tensor."""
+        n = float(count)
+        unbiased = var * (n / max(n - 1.0, 1.0))
         self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
         self.running_var.mul_(1 - self.momentum).add_(
             self.momentum * unbiased)
 
-    def coeffs(self, mean, var, count: float):
+    def coeffs(self, mean, var, count):
         """Per-channel f32 (a, b) from batch statistics (or the running
         ones in eval when tracked)."""
         if self.track_running_stats:
@@ -185,9 +221,13 @@ class BatchNorm(nn.Module):
         return _bn_coeffs(mean, var, self.weight, self.bias, self.eps)
 
     def fused_coeffs(self, stats: torch.Tensor, count: float):
-        """Kernel-produced sums [C, 2] -> the (a, b) the NEXT fused layer
-        applies on load (``BatchNorm._fused_coeffs``). Gradients reach the
-        scale, the bias and the sums through these [C]-sized ops."""
+        """Kernel-produced sums [C, 2] over ``count`` items of this rank ->
+        the (a, b) the NEXT fused layer applies on load
+        (``BatchNorm._fused_coeffs``), from the global batch's sums in a
+        data-parallel group. Gradients reach the scale, the bias and the
+        sums through these [C]-sized ops (and the all-reduce, whose
+        backward sums the ranks' gradients of the global sums)."""
+        stats, count = _global_sums(stats, count)
         mean = stats[:, 0] / count
         var = stats[:, 1] / count - mean * mean
         # max(var, 0) with the gradient split at var == 0, as jnp.maximum
@@ -201,14 +241,25 @@ class BatchNorm(nn.Module):
                               self.weight, self.bias, self.eps)
             return x * _bcast(a, x) + _bcast(b, x)
         dims = (0,) + tuple(range(2, x.dim()))
+        count = float(x.numel() // x.shape[1])
+        gcount = None
         with torch.no_grad():
             xf = x.to(torch.float32)
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
-                              min=0.0)
+            if mesh.world() == 1:
+                mean = xf.mean(dim=dims)
+                var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                                  min=0.0)
+            else:
+                sums, gcount = _global_sums(torch.stack(
+                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims)], dim=-1),
+                    count)
+                mean = sums[:, 0] / gcount
+                var = torch.clamp(sums[:, 1] / gcount - mean * mean, min=0.0)
+                count = gcount
         if self.track_running_stats:
-            self._update_running(mean, var, float(x.numel() // x.shape[1]))
-        return _BNTrain.apply(x, self.weight, self.bias, mean, var, self.eps)
+            self._update_running(mean, var, count)
+        return _BNTrain.apply(x, self.weight, self.bias, mean, var, self.eps,
+                              gcount)
 
 
 class ConvBN(nn.Module):
@@ -233,7 +284,8 @@ class ConvBN(nn.Module):
 
     def fused(self, x, a, b, act: str, use_kernel: bool = True):
         """Returns (y_raw, a', b') where (a', b') normalize y_raw on the
-        NEXT layer's load (count = N H W)."""
+        NEXT layer's load (count = N H W, the global batch's in a
+        data-parallel group: ``BatchNorm.fused_coeffs``)."""
         y, stats, _ = self.Conv_0.fused(x, a, b, act, use_kernel)
         count = float(y.shape[0] * y.shape[2] * y.shape[3])
         a2, b2 = self.BatchNorm_0.fused_coeffs(stats, count)

@@ -6,7 +6,8 @@ The source is compiled with ``g++ -O3 -march=native -fopenmp -shared
 of the source and flags, so an edited source is never served from a stale
 build. The build runs in a temporary directory and is moved into place
 with ``os.replace``: the spawned loader processes of ``data/scheduler.py``
-may race to build and all end with the same file. A failed build raises
+may race to build and all end with the same file. In a data-parallel
+group rank 0 builds and the other ranks wait for it. A failed build raises
 ``BuildError`` with the compiler's output; nothing falls back.
 """
 
@@ -71,14 +72,22 @@ def _build(target: Path) -> None:
         os.replace(so, target)      # atomic: concurrent builds agree
 
 
+def _ensure_built() -> Path:
+    target = _target()
+    if not target.is_file():
+        _build(target)
+    return target
+
+
 def library():
-    """Build (once per source hash) and load the library."""
+    """Build (once per source hash) and load the library; in a
+    data-parallel group rank 0 builds first while the other ranks wait
+    (``parallel/mesh.rank0_first``)."""
     global _lib
     with _lock:
         if _lib is None:
-            target = _target()
-            if not target.is_file():
-                _build(target)
+            from depthestimation_tpu_torch.parallel import mesh
+            target = mesh.rank0_first(_ensure_built)
             lib = ctypes.CDLL(str(target))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -82,9 +82,10 @@ def _launch(entry: str, src: torch.Tensor, out: torch.Tensor, f: int,
             depth: int):
     n = src.shape[0]
     p = src[0, 0].numel()
-    cuda_lib.library().call(
+    cuda_lib.launch(
         entry, src.data_ptr(), out.data_ptr(), n, f, p, depth,
-        int(src.dtype == torch.bfloat16), cuda_lib.stream_ptr(src.device))
+        int(src.dtype == torch.bfloat16), cuda_lib.stream_ptr(src.device),
+        device=src.device)
 
 
 def tap_combine_bwd(g: torch.Tensor, depth: int) -> torch.Tensor:

@@ -118,11 +118,11 @@ def conv3d_flat_fwd(x: torch.Tensor, weight: torch.Tensor, depth: int,
         weight = weight.to(x.dtype)  # the f32 kernel reads an f32 weight
     weight = weight.contiguous()     # a copy only for a strided view
     y = torch.empty((n, f, h, w), dtype=x.dtype, device=x.device)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "conv3d_flat_fwd", x.data_ptr(), weight.data_ptr(), y.data_ptr(), n,
         c, f, depth, h, w, int(x.dtype == torch.bfloat16),
         int(weight.dtype == torch.float32), int(flip),
-        cuda_lib.stream_ptr(x.device))
+        cuda_lib.stream_ptr(x.device), device=x.device)
     conv3d_flat.launches += 1
     return y
 
@@ -160,11 +160,11 @@ def conv3d_flat_dw(x: torch.Tensor, dy: torch.Tensor,
                            device=x.device)
     u = (torch.empty(need["u"], dtype=torch.bfloat16, device=x.device)
          if need["u"] else None)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "conv3d_flat_dw", x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
         partials.data_ptr(), u.data_ptr() if u is not None else None, n, c,
         f, depth, h, w, n_sm, int(x.dtype == torch.bfloat16),
-        cuda_lib.stream_ptr(x.device))
+        cuda_lib.stream_ptr(x.device), device=x.device)
     conv3d_flat.dw_launches += 1
     # rows kd*F + f, columns c*9 + kh*3 + kw -> [F, C, 3, 3, 3]
     return dw.reshape(3, f, c, 3, 3).permute(1, 2, 0, 3, 4)

@@ -148,10 +148,11 @@ def convbn2d_block_fwd(x, w, a, b, act: str = "none"):
     y = torch.empty((n, f, h, wd), dtype=torch.bfloat16, device=dev)
     stats = torch.empty((f, 2), dtype=torch.float32, device=dev)
     partials = torch.empty((f, cap, 2), dtype=torch.float32, device=dev)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "convbn2d_fwd", x.data_ptr(), w.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), stats.data_ptr(), partials.data_ptr(),
-        n, c, f, h, wd, ACTS.index(act), cap, cuda_lib.stream_ptr(dev))
+        n, c, f, h, wd, ACTS.index(act), cap, cuda_lib.stream_ptr(dev),
+        device=dev)
     convbn2d_block.launches += 1
     return y, stats
 
@@ -186,14 +187,14 @@ def convbn2d_block_bwd(x, w, a, b, y, gy, gstats, act: str = "none"):
     dw = torch.empty((f, c, 3, 3), dtype=torch.float32, device=dev)
     dw_partials = torch.empty((dw_blocks, 9 * _round16(c), _round16(f)),
                               dtype=torch.float32, device=dev)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "convbn2d_bwd", x.data_ptr(), w.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), gy.data_ptr(), gstats.data_ptr(),
         ge.data_ptr(), u.data_ptr(), dx.data_ptr(), dab.data_ptr(),
         ab_partials.data_ptr(),
         dw.data_ptr(), dw_partials.data_ptr(), n, c, f, h, wd,
         ACTS.index(act), cap, dw_blocks, nsplit, wgs,
-        cuda_lib.stream_ptr(dev))
+        cuda_lib.stream_ptr(dev), device=dev)
     convbn2d_block.bwd_launches += 1
     return dx, dw, dab[:, 0], dab[:, 1]
 

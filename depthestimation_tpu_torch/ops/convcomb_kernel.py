@@ -247,11 +247,11 @@ def convbn_block_fwd(x, wm, a, b, depth: int, h: int, w: int,
     stats = torch.empty((f, 2), dtype=torch.float32, device=dev)
     seg, nblk = _grid(n, depth, h, w, dev, (c, f))
     partials = torch.empty((f, nblk, 2), dtype=torch.float32, device=dev)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "convcomb_fwd", x.data_ptr(), wm.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), stats.data_ptr(), partials.data_ptr(),
         n, c, f, depth, h, w, int(bool(relu_in)), seg,
-        cuda_lib.stream_ptr(dev))
+        cuda_lib.stream_ptr(dev), device=dev)
     convbn_block.launches += 1
     return y, stats
 
@@ -287,14 +287,14 @@ def convbn_block_bwd(x, wm, a, b, y, gy, gstats, depth: int, h: int,
     dwm = torch.empty((3 * f, c, 3, 3), dtype=torch.float32, device=dev)
     dw_partials = torch.empty((dw_blocks, 9 * _round16(c), _round16(3 * f)),
                               dtype=torch.float32, device=dev)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "convcomb_bwd", x.data_ptr(), wm.data_ptr(), a.data_ptr(),
         b.data_ptr(), y.data_ptr(), gy.data_ptr(), gstats.data_ptr(),
         ge.data_ptr(), u.data_ptr(), dx.data_ptr(), dab.data_ptr(),
         ab_partials.data_ptr(),
         dwm.data_ptr(), dw_partials.data_ptr(), n, c, f, depth, h, w,
         int(bool(relu_in)), seg, dw_blocks, nsplit, wgs,
-        cuda_lib.stream_ptr(dev))
+        cuda_lib.stream_ptr(dev), device=dev)
     convbn_block.bwd_launches += 1
     return dx, dwm, dab[:, 0], dab[:, 1]
 

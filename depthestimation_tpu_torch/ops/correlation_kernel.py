@@ -145,10 +145,10 @@ def correlate_bwd(x1: torch.Tensor, x2: torch.Tensor, g: torch.Tensor,
                          f"not fit x1 {tuple(x1.shape)} at md={md}")
     dx1, dx2 = torch.empty_like(x1), torch.empty_like(x2)
     cg = bwd_channels(b, c, h, w, cuda_lib.sm_count(x1.device), md)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "correlation_bwd", x1.data_ptr(), x2.data_ptr(), g.data_ptr(),
         dx1.data_ptr(), dx2.data_ptr(), b, c, h, w, md, cg,
-        cuda_lib.stream_ptr(x1.device))
+        cuda_lib.stream_ptr(x1.device), device=x1.device)
     correlate.bwd_launches += 1
     return dx1, dx2
 
@@ -166,10 +166,10 @@ def correlate_fwd(x1: torch.Tensor, x2: torch.Tensor,
     groups = _ceil_div(c, cg)
     part = (torch.empty((groups, b, k, h, w), dtype=x1.dtype,
                         device=x1.device) if groups > 1 else None)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "correlation_fwd", x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None, b, c, h, w, md, cg,
-        cuda_lib.stream_ptr(x1.device))
+        cuda_lib.stream_ptr(x1.device), device=x1.device)
     correlate.launches += 1
     return out
 

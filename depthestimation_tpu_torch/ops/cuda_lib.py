@@ -7,7 +7,11 @@ library with a plain C interface, at first use, under the checkout's
 ``ctypes``. The library's file name carries a hash of the sources and
 flags, so an edited kernel is never served from a stale build. Nothing is
 built or loaded at import time: the CPU tests import every module on a
-machine without ``nvcc``.
+machine without ``nvcc``. In a data-parallel group rank 0 builds while the
+other ranks wait (``parallel/mesh.rank0_first``), then they load its
+build. A C launcher runs on the calling thread's current CUDA device, so
+the wrappers launch through ``launch``, which makes their tensors'
+device current for the call.
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ class KernelLibrary:
         self._lib.de_error_string.restype = ctypes.c_char_p
 
     def call(self, name: str, *args) -> None:
-        """Run one C launcher; raise if the launch was refused."""
+        """Run one C launcher on the current CUDA device; raise if the
+        launch was refused."""
         err = getattr(self._lib, name)(*args)
         if err != 0:
             msg = self._lib.de_error_string(err).decode()
@@ -119,25 +124,48 @@ def _build(srcs: list[Path], target: Path) -> str:
 
 
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library; in a
+    data-parallel group rank 0 first, the other ranks after it."""
     global _library
     with _lock:
-        if _library is not None:
-            return _library
-        srcs = _sources()
-        digest = hashlib.sha256()
-        for p in srcs + sorted(CSRC.glob("*.cuh")):
-            digest.update(p.name.encode())
-            digest.update(p.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        target = BUILD_DIR / f"libde_kernels_{digest.hexdigest()[:16]}.so"
-        t0 = time.perf_counter()
-        log = ""
-        if not target.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            log = _build(srcs, target)
-        _library = KernelLibrary(target, time.perf_counter() - t0, log)
+        if _library is None:
+            from depthestimation_tpu_torch.parallel import mesh
+            _library = mesh.rank0_first(_load)
         return _library
+
+
+def _load() -> KernelLibrary:
+    """Build the library unless this source hash's build exists, and load
+    it."""
+    srcs = _sources()
+    digest = hashlib.sha256()
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    target = BUILD_DIR / f"libde_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        log = _build(srcs, target)
+    return KernelLibrary(target, time.perf_counter() - t0, log)
+
+
+def launch(name: str, *args, device) -> None:
+    """Run C launcher ``name`` on ``device``, the card its pointers live
+    on. The launchers ask the runtime for the current device (its SM
+    count, its shared-memory limit) and launch there, so a rank whose
+    tensors are on ``cuda:k`` makes ``cuda:k`` current for the call, and
+    the calling thread's current device is restored after it. A device of
+    another type (``meta``) has no card to select."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        library().call(name, *args)
+        return
+    with torch.cuda.device(device):
+        library().call(name, *args)
 
 
 @functools.lru_cache(maxsize=None)

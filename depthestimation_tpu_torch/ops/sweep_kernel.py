@@ -146,11 +146,11 @@ def sweep_stage2_fwd(fa, ref, fr, rxt, ry, v: int):
     cost = torch.empty((n, d, h, w), dtype=torch.float32, device=fa.device)
     diag = torch.empty_like(cost)
     scratch = _scratch(n, d, h, w, fa.device)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "sweep_stage2_fwd", fa.data_ptr(), ref.data_ptr(), fr.data_ptr(),
         rxt.data_ptr(), ry.data_ptr(), cost.data_ptr(), diag.data_ptr(),
         scratch.data_ptr(), n, v, c1, d, h, w,
-        cuda_lib.stream_ptr(fa.device))
+        cuda_lib.stream_ptr(fa.device), device=fa.device)
     sweep_stage2.launches += 1
     return cost, diag
 
@@ -196,11 +196,11 @@ def sweep_stage2_bwd(fa, ref, fr, rxt, ry, gcost, gdiag, v: int):
                        device=fa.device)
     dfr = torch.empty((n, d, h, w), dtype=torch.float32, device=fa.device)
     scratch = _scratch(n, d, h, w, fa.device)
-    cuda_lib.library().call(
+    cuda_lib.launch(
         "sweep_stage2_bwd", fa.data_ptr(), ref.data_ptr(), fr.data_ptr(),
         rxt.data_ptr(), ry.data_ptr(), gcost.data_ptr(), gdiag.data_ptr(),
         dfa.data_ptr(), dref.data_ptr(), dfr.data_ptr(), scratch.data_ptr(),
-        n, v, c1, d, h, w, cuda_lib.stream_ptr(fa.device))
+        n, v, c1, d, h, w, cuda_lib.stream_ptr(fa.device), device=fa.device)
     sweep_stage2.bwd_launches += 1
     return dfa, dref, dfr
 

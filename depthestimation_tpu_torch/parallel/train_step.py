@@ -7,7 +7,11 @@ parameters stay f32 and the optimizer state f32; a bf16 model computes in
 bf16 (its kernels) and casts at use. PyTorch updates the parameters and the
 optimizer state in place, where JAX returns new ones. With ``lc_fn`` the
 light-curtain loop runs inside the step on the detached refined DPVs and
-its ``prev_lc`` feedback lands in ``aux``. JAX's ``make_train_rollout``
+its ``prev_lc`` feedback lands in ``aux``. In a data-parallel group
+(``parallel/mesh.py``) the step is JAX's on the global batch: BatchNorm
+takes the global statistics inside the model, and the gradients are
+averaged over the ranks between the backward and the optimizer step, so
+every rank applies the same update. JAX's ``make_train_rollout``
 (the step under ``lax.scan``) has no counterpart: on the card a chunk of
 frames is the trainer's frame loop over this step.
 """
@@ -20,6 +24,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
+from depthestimation_tpu_torch.parallel import mesh
 from depthestimation_tpu_torch.utils import precision
 
 
@@ -98,7 +103,14 @@ def make_train_step(loss_fn: Callable,
     refined DPVs; its results land in ``aux["prev_lc_left"]`` and
     ``aux["prev_lc_right"]``. It draws from ``generator`` after the two
     drops. Without it the step and its draws are unchanged. The forward,
-    loss and backward run with TF32 off (``utils/precision.no_tf32``)."""
+    loss and backward run with TF32 off (``utils/precision.no_tf32``).
+
+    With more than one rank, one flat all-reduce averages the gradients
+    after the backward (``mesh.all_reduce_grads``: the gradient of the
+    mean of the ranks' losses, JAX's global loss), and the loss returned
+    is that mean. ``DistributedDataParallel`` is not used: its reducer
+    hooks fire per backward pass and expect each parameter once, where a
+    step runs two forwards and a nmode may leave modules unused."""
 
     def step(state: TrainState, mi_l: dict, mi_r: dict, gt_l: dict,
              gt_r: dict, generator: torch.Generator | None = None):
@@ -110,6 +122,10 @@ def make_train_step(loss_fn: Callable,
             out_r = model(mi_r, generator=generator)
             loss = loss_fn([out_l, out_r], [gt_l, gt_r])
             loss.backward()
+        loss = loss.detach()
+        if mesh.world() > 1:
+            mesh.all_reduce_grads(model.parameters())
+            loss = mesh.all_reduce_(loss.clone()) / mesh.world()
         opt.step()
         state.step += 1
         ref_l = out_l["output_refined"][-1]
@@ -122,7 +138,7 @@ def make_train_step(loss_fn: Callable,
             aux["prev_lc_left"], aux["prev_lc_right"] = lc_fn(
                 aux["refined_left"], aux["refined_right"], mi_l, mi_r,
                 generator)
-        return state, loss.detach(), aux
+        return state, loss, aux
 
     return step
 

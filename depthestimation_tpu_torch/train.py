@@ -12,7 +12,20 @@ not a directory, it trains on ``SyntheticStereoVideoDataset``; otherwise
 on ``IlimVideoDataset`` when ``data.dataset_split`` names "ilim" or
 "sweep", else on ``KittiVideoDataset`` (both read PNGs without Pillow and
 project the velodyne with ``native/kittiops.cpp``, built by ``g++`` at
-first use). Single process: DDP waits for queue 1's "Multi-GPU".
+first use).
+
+Data parallel, one rank per card:
+
+    torchrun --nproc_per_node N -m depthestimation_tpu_torch.train \
+        --config ... [-b B]
+
+Each rank is one JAX host with one device (``parallel/mesh.py``): it
+loads the trajectories ``i % N == rank``, ``-b`` is its own batch (the
+global batch is ``B x N``), BatchNorm takes the global batch's
+statistics, the gradients are averaged over the ranks, and rank 0 logs,
+writes tensorboard, the checkpoints and the results file. (JAX's
+single-host mesh splits ``-b`` over the host's chips instead.) ``--eval``
+validates at batch 1 per rank, with the metrics over every rank's frames.
 """
 
 from __future__ import annotations
@@ -44,12 +57,15 @@ def parse_args(argv=None):
 def build_loaders(cfg, use_synthetic: bool):
     """(train, val) ``BatchScheduler``s, chosen as the JAX CLI chooses:
     synthetic video under ``--synthetic`` or without a dataset directory
-    (train: max(2B, 4) trajectories of 4 frames, seed 1; val: B of 2
-    frames, seed 2), the ILIM / sweep drives when ``data.dataset_split``
-    names "ilim" or "sweep", else the KITTI raw drives (split "train" /
-    "test")."""
+    (train: max(2B, 4) trajectories of 4 frames per rank, seed 1; val: B
+    of 2 frames per rank, seed 2), the ILIM / sweep drives when
+    ``data.dataset_split`` names "ilim" or "sweep", else the KITTI raw
+    drives (split "train" / "test"). Each rank takes the trajectories
+    ``i % world == rank`` (``host_id``, ``n_hosts``)."""
     from depthestimation_tpu_torch.data.scheduler import BatchScheduler
+    from depthestimation_tpu_torch.parallel import mesh
     bs = int(cfg.train.batch_size)
+    ranks = dict(host_id=mesh.rank(), n_hosts=mesh.world())
     split = cfg.data.dataset_split
     if use_synthetic or not os.path.isdir(cfg.data.dataset_path):
         from depthestimation_tpu_torch.data.video_synthetic import (
@@ -58,10 +74,11 @@ def build_loaders(cfg, use_synthetic: bool):
         common = dict(h=h, w=w, t_win=cfg.var.t_win, d_min=cfg.var.d_min,
                       d_max=cfg.var.d_max, ndepth=cfg.var.ndepth,
                       qpower=cfg.var.qpower)
-        train_ds = SyntheticStereoVideoDataset(n_traj=max(bs * 2, 4),
+        n = ranks["n_hosts"]
+        train_ds = SyntheticStereoVideoDataset(n_traj=max(bs * 2, 4) * n,
                                                traj_len=4, seed=1, **common)
-        val_ds = SyntheticStereoVideoDataset(n_traj=bs, traj_len=2, seed=2,
-                                             **common)
+        val_ds = SyntheticStereoVideoDataset(n_traj=bs * n, traj_len=2,
+                                             seed=2, **common)
     elif "ilim" in split or "sweep" in split:
         from depthestimation_tpu_torch.data.ilim import IlimVideoDataset
         train_ds = IlimVideoDataset(cfg, split="train")
@@ -75,14 +92,18 @@ def build_loaders(cfg, use_synthetic: bool):
     # --synthetic is cheap enough to stay in-process
     mload = bool(cfg.var.get("mload", False)) and not use_synthetic
     return (BatchScheduler(train_ds, bs, shuffle=True, qmax=qmax,
-                           mload=mload),
+                           mload=mload, **ranks),
             BatchScheduler(val_ds, bs, shuffle=False, qmax=qmax,
-                           mload=mload))
+                           mload=mload, **ranks))
 
 
 def main(argv=None, device="cuda"):
     """Train (or with ``--eval`` validate ``_model_best`` at batch 1) and
-    return the trainer."""
+    return the trainer. Under ``torchrun`` it joins the process group
+    first (``mesh.init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo
+    for ``device="cpu"``); a group the caller made is used as it is."""
+    from depthestimation_tpu_torch.parallel import mesh
+    device = mesh.init_distributed(device)
     args = parse_args(argv)
     from depthestimation_tpu_torch.config import load_config
     cfg = load_config(args.config)
@@ -109,11 +130,13 @@ def main(argv=None, device="cuda"):
     from depthestimation_tpu_torch.trainer.factory import get_trainer
     from depthestimation_tpu_torch.utils.logger import init_logger
 
-    logger = init_logger(cfg.data.exp_name, save_root)
+    lead = mesh.rank() == 0
+    logger = init_logger(cfg.data.exp_name, save_root if lead else None,
+                         quiet=not lead)
     model = get_model(cfg, device, seed=int(cfg.seed))
     train_loader, val_loader = build_loaders(cfg, args.synthetic)
-    trainer = get_trainer(cfg)(0, model, get_loss(cfg), logger, save_root,
-                               cfg, train_loader, val_loader)
+    trainer = get_trainer(cfg)(mesh.rank(), model, get_loss(cfg), logger,
+                               save_root, cfg, train_loader, val_loader)
 
     # the torch model holds its weights already: JAX's CLI builds its state
     # from the first validation batch, the port needs none

@@ -19,12 +19,25 @@ The losses and metrics stay on the card until ``print_freq`` or the end of
 the epoch or validation reads them; each batch moves to the card once and
 its soft labels are made there. The draws (the ``prev_lc`` drops, the LC
 simulator's noise, ``var.pnoise``) come from one ``torch.Generator`` on the
-model's device, seeded with ``cfg.seed``: they cannot reproduce JAX's PRNG.
+model's device, seeded with ``cfg.seed`` on rank 0 and from ``(cfg.seed,
+rank)`` on the others: they cannot reproduce JAX's PRNG. The per-item
+draws (the noise, the pose noise) differ between ranks; the ``prev_lc``
+drop, one draw for the global batch in JAX, is rank 0's on every rank
+(``BaseModelNet._drop_prev_lc``).
 JAX's ``lax.scan`` routes (``tpu.scan_train``, ``tpu.scan_eval``) run
 the same modules over the same frames; on the card they are this frame
 loop, so the port ignores those keys (``config.IGNORED_TPU_KEYS``).
-Single process: the multi-host step vote and epoch barrier wait for DDP
-(ROADMAP.md, queue 1: "Multi-GPU"). With ``lc.real_lc_config`` a second,
+
+Data parallel (``parallel/mesh.py``; ``id`` is the rank): each rank
+trains on its own trajectories, the ranks agree on the epoch's step count
+before it (``global_min_steps``), vote on every batch whether to skip it
+(``global_any``: a corrupted batch on any rank skips it on all), gather
+the validation's per-frame errors so every rank reports the same metrics,
+and meet at a barrier after each checkpoint and at each epoch's end. Rank
+0 writes the checkpoints and the results file; the model is made rank
+0's on every rank after it is built or loaded (``broadcast_state``).
+
+With ``lc.real_lc_config`` a second,
 real ``LightCurtain`` is built from that sensor bundle and the LC loop
 leaves the step: after each step ``_run_lc`` fuses each side's refined
 DPV, against the batch's recorded sweep (``lc_process_real``) where the
@@ -49,6 +62,7 @@ from depthestimation_tpu_torch.ops import dpv as dpv_ops
 from depthestimation_tpu_torch.ops import metrics as metrics_ops
 from depthestimation_tpu_torch.ops import ufield as ufield_ops
 from depthestimation_tpu_torch.ops.geometry import add_noise_to_pose
+from depthestimation_tpu_torch.parallel import mesh
 from depthestimation_tpu_torch.parallel.train_step import (
     init_state, make_eval_step, make_train_step, set_learning_rate)
 from depthestimation_tpu_torch.trainer import checkpoint as ckpt
@@ -101,6 +115,17 @@ _NO_PREV = {"left": None, "right": None}
 _METRIC_KEYS = ("rmse", "rmse_refined", "sil", "sil_refined", "rmse_unc")
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The generator seed of ``rank``: ``seed`` itself on rank 0 (a single
+    process draws what it always drew), a distinct stream on the others,
+    so ranks do not draw the same per-item noise (the LC simulator's,
+    ``var.pnoise``)."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(rank)])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
 def _strip_prev(mi: dict) -> dict:
     return {k: v for k, v in mi.items() if k not in ("prev_output",
                                                       "prev_lc")}
@@ -140,11 +165,13 @@ class DefaultTrainer:
         self.prev_output = dict(_NO_PREV)
         self.prev_lc = dict(_NO_PREV)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(cfg.get("seed", 0)))
+            rank_seed(cfg.get("seed", 0), mesh.rank()))
         #: seconds of the last training epoch, and of it the wait on the
         #: loader (``_wait_total``: every wait, validation's too)
         self.epoch_seconds = self.loader_wait_seconds = 0.0
         self._wait_total = 0.0
+        #: the last validation's five metrics (``_METRIC_KEYS``)
+        self.last_metrics = None
 
         self.lc = None
         self.real_lc = None
@@ -158,10 +185,12 @@ class DefaultTrainer:
     # -- state management ---------------------------------------------------
 
     def ensure_state(self, sample_model_input=None):
-        """Build the optimizer and the train step once. The sample is not
-        needed: the torch model already holds its weights."""
+        """Build the optimizer and the train step once, the model made
+        rank 0's on every rank. The sample is not needed: the torch model
+        already holds its weights."""
         if self.state is not None:
             return
+        mesh.broadcast_state(self.model)
         self.state = init_state(self.model, self.cfg)
         self._train_step = make_train_step(self.loss_func,
                                            lc_fn=self._fused_lc_fn())
@@ -183,6 +212,7 @@ class DefaultTrainer:
             best=best, map_location=self.device)
         self.model.load_state_dict(state["model"])
         self.state.optimizer.load_state_dict(state["optimizer"])
+        mesh.broadcast_state(self.model)
         self.i_epoch = epoch
         json_loc = os.path.join(self.save_root,
                                 self.cfg.data.exp_name + ".json")
@@ -202,6 +232,7 @@ class DefaultTrainer:
         own = {k: p.detach() for k, p in self.model.named_parameters()}
         self.model.load_state_dict(
             ckpt.restore_params_partial(own, state["model"]), strict=False)
+        mesh.broadcast_state(self.model)
 
     # -- LC setup -----------------------------------------------------------
 
@@ -301,9 +332,11 @@ class DefaultTrainer:
         return gt
 
     def _batches(self, loader):
-        """The loader's batches, timing the wait on each into
+        """The loader's batches, as many as the rank with the fewest has
+        (``global_min_steps``), timing the wait on each into
         ``_wait_total``."""
-        it = iter(loader.enumerate())
+        it = iter(loader.enumerate(
+            max_steps=mesh.global_min_steps(loader.epoch_length())))
         while True:
             t0 = time.perf_counter()
             batch = next(it, None)
@@ -313,7 +346,10 @@ class DefaultTrainer:
             yield batch
 
     def _skip(self, batch, what: str = "batch") -> bool:
-        if batch.get("is_valid", True):
+        """Whether to skip this batch: invalid here or on any other rank
+        (the vote is a collective: every rank calls it for every
+        batch)."""
+        if not mesh.global_any(not batch.get("is_valid", True)):
             return False
         self._log.info(self.id, f"Corrupted Data! Skipping {what} "
                                 f"{batch['batch_idx']+1} frame "
@@ -361,6 +397,7 @@ class DefaultTrainer:
         self._log.info(self.id, f"Epoch done in {self.epoch_seconds:.1f}s "
                                 f"(loader wait {self.loader_wait_seconds:.1f}"
                                 f"s), mean loss {mean:.5f}")
+        mesh.barrier(f"epoch_{self.i_epoch}")
         return mean
 
     def _run_one_epoch_loop(self) -> list:
@@ -461,9 +498,13 @@ class DefaultTrainer:
             acc.append(x)
 
     def _finish_validation(self, errors, errors_refined, errors_unc):
+        """The five metrics over every rank's per-frame errors (gathered in
+        rank order, so every rank computes the same numbers); rank 0
+        appends them to ``{exp}.json``. Then the checkpoint."""
         def cat(xs, shape):
-            return (torch.cat(xs).detach().cpu().double() if xs
-                    else torch.zeros(shape, dtype=torch.float64))
+            rows = (torch.cat(xs).detach().cpu().double().numpy() if xs
+                    else np.zeros(shape, np.float64))
+            return torch.from_numpy(mesh.all_gather_rows(rows))
 
         e, er = cat(errors, (0, 9)), cat(errors_refined, (0, 9))
         eu = cat(errors_unc, (0,))
@@ -474,6 +515,7 @@ class DefaultTrainer:
                       results_refined["scale invariant log"][0],
                       float(np.nanmean(eu.numpy())) if len(eu) else np.nan]
 
+        self.last_metrics = [float(v) for v in error_list]
         self.save_model(error_list[1])
         if self.id == 0:
             json_loc = os.path.join(self.save_root,
@@ -535,11 +577,14 @@ class DefaultTrainer:
 
     def save_model(self, rmse_refined: float):
         """``_ckpt`` every validation; ``_model_best`` when rmse_refined
-        is the lowest so far."""
-        if self.id != 0 or self.state is None:
+        is the lowest so far. Rank 0 writes; every rank then waits at a
+        barrier, so none reads a checkpoint before it is complete."""
+        if self.state is None:
             return
         is_best = rmse_refined < self.best_rmse
         if is_best:
             self.best_rmse = rmse_refined
-        ckpt.save_checkpoint(self.save_root, self.cfg.data.exp_name,
-                             self._state_dict(), self.i_epoch, is_best)
+        if self.id == 0:
+            ckpt.save_checkpoint(self.save_root, self.cfg.data.exp_name,
+                                 self._state_dict(), self.i_epoch, is_best)
+        mesh.barrier("save_model")

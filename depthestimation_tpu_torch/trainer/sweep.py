@@ -4,7 +4,8 @@ Port of ``depthestimation_tpu/trainer/sweep.py``: the scaffolding of
 ``DefaultTrainer``; the validation metric is the masked mean absolute
 error between the predicted peak image and the max-over-planes
 ground-truth sweep intensity (a batch without a sweep compares with the
-valid-depth mask), kept on the card until the end of the validation.
+valid-depth mask), kept on the card until the end of the validation,
+then taken over every data-parallel rank's batches.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import numpy as np
 import torch
 
+from depthestimation_tpu_torch.parallel import mesh
 from depthestimation_tpu_torch.trainer.default import DefaultTrainer
 
 
@@ -35,8 +37,10 @@ class SweepTrainer(DefaultTrainer):
                 mask = torch.ones_like(gt_peak)
             errors.append(((pred_peak - gt_peak).abs() * mask).sum()
                           / torch.clamp(mask.sum(), min=1.0))
-        mean_err = (float(np.mean(torch.stack(errors).tolist())) if errors
-                    else float("nan"))
+        # every rank's batches (data parallel), in rank order
+        errors = mesh.all_gather_rows(np.asarray(
+            torch.stack(errors).tolist() if errors else [], np.float64))
+        mean_err = float(np.mean(errors)) if len(errors) else float("nan")
         self.save_model(mean_err)
         if self.id == 0:
             json_loc = os.path.join(self.save_root,

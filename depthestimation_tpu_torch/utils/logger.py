@@ -10,9 +10,12 @@ import os
 
 
 class Logger:
-    def __init__(self, name: str, save_root: str | None = None):
+    """``quiet``: warnings only (the data-parallel ranks other than 0)."""
+
+    def __init__(self, name: str, save_root: str | None = None,
+                 quiet: bool = False):
         self._logger = logging.getLogger(name)
-        self._logger.setLevel(logging.INFO)
+        self._logger.setLevel(logging.WARNING if quiet else logging.INFO)
         self._logger.propagate = False
         if not self._logger.handlers:
             fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
@@ -39,5 +42,5 @@ class Logger:
 
 
 def init_logger(name: str = "depthestimation_tpu_torch",
-                save_root=None) -> Logger:
-    return Logger(name, save_root)
+                save_root=None, quiet: bool = False) -> Logger:
+    return Logger(name, save_root, quiet)

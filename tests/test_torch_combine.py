@@ -39,6 +39,16 @@ from depthestimation_tpu_torch.weights import load_jax_params
 SHAPES = [(2, 4, 3, 8, 8), (1, 6, 2, 16, 4), (3, 2, 1, 8, 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(shape, seed=0):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 

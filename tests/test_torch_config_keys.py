@@ -38,6 +38,16 @@ FD = D = 16
 H, W = 48, 72
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(dtype="bfloat16", var=None, **tpu):
     v = {"sigma_soft_max": 10.0, "t_win": 1, "d_min": 3.0, "d_max": 30.0,
          "feature_dim": FD, "ndepth": D, "qpower": 1.0,

@@ -29,6 +29,16 @@ from depthestimation_tpu_torch.ops import convbn2d_kernel as c2
 N, H, W = 2, 8, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 

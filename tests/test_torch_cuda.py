@@ -1021,3 +1021,60 @@ def test_flow_train_step_through_the_correlation_kernels(dev):
     dist = (torch.linalg.vector_norm(grads[True] - grads[False])
             / torch.linalg.vector_norm(grads[False])).item()
     assert dist <= 1e-3, dist
+
+
+def _second_card(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a launch on cuda:1 while "
+                    "cuda:0 is current")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("layer", ["sweep", "convcomb", "convbn2d"])
+def test_kernels_launch_on_their_tensors_card(dev, layer):
+    """A data-parallel rank's tensors live on cuda:k: with cuda:0 current,
+    the forward and backward on cuda:1 tensors launch there
+    (``cuda_lib.launch``) and equal the same launches on cuda:0 bit for
+    bit; the current device stays 0."""
+    d0, d1 = _second_card(dev)
+    gen = torch.Generator().manual_seed(21)
+    bf = torch.bfloat16
+    if layer == "sweep":
+        n, v, c1, d, h, w = 2, 1, 5, 8, 12, 16
+        args = [_randn(gen, n, c1, h, w), _randn(gen, n // v, c1, h, w),
+                _randn(gen, n, d, h, w),
+                torch.rand(n, d, w, w, generator=gen) * 0.2,
+                torch.rand(n, d, h, h, generator=gen) * 0.2]
+        args = [a.to(bf) for a in args]
+
+        def run(t):
+            return sk.sweep_stage2(*t, v)
+    elif layer == "convcomb":
+        args = [_randn(gen, 16, 32, 12 * 16).to(bf),
+                _randn(gen, 96, 32, 3, 3, scale=0.2).to(bf),
+                torch.rand(32, generator=gen) * 0.5 + 0.75,
+                _randn(gen, 32, scale=0.1)]
+
+        def run(t):
+            return ck.convbn_block(*t, 8, 12, 16, True)
+    else:
+        x, wt, a, b = _convbn2d_data(gen, 2, 32, 32, 16, 24, "cpu")
+        args = [x, wt, a, b]
+
+        def run(t):
+            return c2.convbn2d_block(*t, "relu")
+    outs = {}
+    with torch.cuda.device(d0):
+        for card in (d1, d0):
+            leaves = [a.to(card).requires_grad_() for a in args]
+            ys = run(leaves)
+            cot = [torch.ones_like(y) * 0.01 for y in ys]
+            torch.autograd.backward(ys, cot)
+            torch.cuda.synchronize(card)
+            assert all(y.device == card for y in ys)
+            outs[card] = [y.detach().cpu() for y in ys] + [
+                leaf.grad.cpu() for leaf in leaves
+                if leaf.grad is not None]
+            assert torch.cuda.current_device() == 0
+    for got, want in zip(outs[d1], outs[d0]):
+        assert torch.equal(got, want)

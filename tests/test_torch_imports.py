@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 50, got["modules"]
     for name in ("losses.base_loss", "losses.blocks", "losses.factory",
-                 "parallel.train_step", "trainer.default",
+                 "parallel.train_step", "parallel.mesh", "trainer.default",
                  "ops.combine_kernel", "lc.device", "lc.transform",
                  "lc.fieldwarp", "lc.planner", "lc.curtain", "lc.process",
                  "ops.correlation", "ops.correlation_kernel",

@@ -65,6 +65,16 @@ from depthestimation_tpu_torch.ops.resample import interp
 W, H, D = 72, 32, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 

@@ -66,6 +66,16 @@ CFG = dict(_CFG,
            tpu=dict(dtype="float32", **KEYS))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _curtain(cls, cfg, mi, **kw):
     lc = cls(**kw)
     params = lc.gen_params_from_model_input(mi)

@@ -49,6 +49,16 @@ from depthestimation_tpu_torch.weights import from_jax_params, load_jax_params
 HW, B, LEVEL = 64, 2, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_dict(trainer="sintel", **train):
     d = {"data": {"exp_name": "t_sintel", "model_name": "pwclite",
                   "loss_name": "unflow", "trainer_name": trainer,

@@ -47,6 +47,16 @@ STEPS = {"sideways": (-0.2, 0.0, 0.0), "forward": (-0.1, 0.02, 0.3),
          "outside": (-3.0, 0.0, 0.0)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mats(kind, n, rs):
     """(rxt [n, D, W, W], ry [n, D, H, H]) as float32 numpy."""
     if kind in STEPS:

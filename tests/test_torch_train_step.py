@@ -139,6 +139,16 @@ def rel(a, b):
             / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def batch():
     return make_batch()

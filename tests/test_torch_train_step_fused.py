@@ -34,6 +34,16 @@ from test_torch_train_step import (_CFG, D, FD, H, W, cfgs,
 from test_torch_train_step_bf16 import GROUPS, _group_rel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tensors are too small for more threads, and the suite's other
+    workers and JAX's own share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_fused_bf16_step_rule4_against_jax():
     batch = make_batch()
     variables = jax_variables(batch[0])
