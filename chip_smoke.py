@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU: the serving
 path, the bf16 train step, the train step with the light-curtain loop
-inside, PWCLite optical-flow training, and light-curtain serving with the
-recorded-sweep paths.
+inside, PWCLite optical-flow training, light-curtain serving with the
+recorded-sweep paths, the real-data loaders, data parallel, the KITTI eval
+harness, the sweep converter and the LC sandbox.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -161,7 +162,24 @@ Phases, one line each (a failed phase exits non-zero before the result):
    a rank with 15 trajectories (8 and 4 steps: both run 4), one epoch and
    its validation: equal steps, bit-equal parameters, one ``_ckpt`` from
    rank 0, the same five metrics; step ms, epoch s and loader wait a
-   rank.
+   rank;
+14. the last modules, work files in ``build/phase14``: (a) ``python -m
+   depthestimation_tpu_torch.eval_parity``'s ``main`` on phase 12 (c)'s
+   ``_model_best`` over the KITTI fixture's validation split (bf16, B=1):
+   one eval forward a frame, all 2 x 9 devkit metrics finite, the table's
+   rmse, rmse_refined, both scale-invariant logs and rmse_unc within 1e-5
+   relative of ``train.main([... "--eval"])``'s on the same weights and
+   frames, the sweep and Base3D forward launches a frame (both > 0) and
+   the forward's ms a frame (CUDA events); an orbax directory raising the
+   importer's ``ValueError``; (b) ``sweep_convert`` on a capture at the
+   rig's stored size (128 planes of 320x256x2 f32, a 120,000-point scan,
+   the rig's LC distortion): the card's undistort (one gather and
+   weighted sum, its taps built once) against its plain numpy version on
+   the same quantized map (max abs diff 1e-5 of the planes' range), ms a frame split into undistort, depth maps and
+   projection, ``convert_frame`` and the CLI on one frame; (c)
+   ``examples/lc_sandbox_torch.py`` on the card: six rounds, the last
+   error below the first, each within the sandbox's ``BOUND`` of the
+   JAX script's printed curve (its ``JAX_CURVE``).
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. The f32 references run without TF32.
@@ -3659,6 +3677,289 @@ def phase_data_parallel(card):
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 14
+
+#: phase 12 (c)'s work directory: the bf16 default_exp7 copy on the KITTI
+#: fixture tree and the ``_model_best`` its trainer wrote
+P12_TRAINER = os.path.join("build", "phase12", "trainer")
+P12_EXP = "kitti_exp7"
+
+
+@contextlib.contextmanager
+def quiet_stdout():
+    """The entry points' own printing (a table, a line a frame) kept out of
+    this script's output."""
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def _counted_eval(tdefault, forwards):
+    """``make_eval_step`` wrapped: each forward's CUDA events."""
+    import torch
+    real_make = tdefault.make_eval_step
+
+    def counted_make(model):
+        step = real_make(model)
+
+        def run(mi):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(mi)
+            ev[1].record()
+            forwards.append(ev)
+            return out
+        return run
+
+    return real_make, counted_make
+
+
+def phase_eval_harness(card):
+    """Phase 14 (a): ``eval_parity.main`` on phase 12 (c)'s ``_model_best``
+    over the KITTI fixture's validation split, held to ``train.main
+    --eval``'s metrics on the same weights and frames; an orbax
+    directory raising the importer's error."""
+    import torch
+    from depthestimation_tpu_torch import eval_parity
+    from depthestimation_tpu_torch import train as ttrain
+    from depthestimation_tpu_torch.trainer import default as tdefault
+
+    work = os.path.join(ROOT, P12_TRAINER)
+    path = os.path.join(work, "default_exp7_kitti.json")
+    save_root = os.path.join(work, "outputs", "checkpoints", P12_EXP)
+    check(os.path.isdir(os.path.join(save_root, P12_EXP + "_model_best")),
+          f"phase 12c left no _model_best under {save_root}")
+    forwards = []
+    real_make, counted_make = _counted_eval(tdefault, forwards)
+    cwd = os.getcwd()
+    os.chdir(work)
+    tdefault.make_eval_step = counted_make
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with quiet_stdout():
+            table = eval_parity.main(["--config", path, "--ckpt", save_root])
+        wall = time.perf_counter() - t0
+        counts = dict(zip(COUNT_NAMES, launch_counts()))
+        n_fwd = len(forwards)
+        torch.cuda.synchronize()
+        fwd_ms = [a.elapsed_time(b) for a, b in forwards]
+        ev = ttrain.main(["--config", path, "--eval"])
+    finally:
+        tdefault.make_eval_step = real_make
+        os.chdir(cwd)
+    frames = table["frames"]
+    check(frames > 0 and n_fwd == frames,
+          f"{frames} frames, {n_fwd} eval forwards: one a frame")
+    for scale in ("low_res", "refined"):
+        check(len(table[scale]) == 9 and all(
+            np.isfinite(v).all() for v in table[scale].values()),
+            f"the {scale} metrics are not all finite: {table[scale]}")
+    got = [table["low_res"]["rmse"][0], table["refined"]["rmse"][0],
+           table["low_res"]["scale invariant log"][0],
+           table["refined"]["scale invariant log"][0], table["rmse_unc"]]
+    want = ev.last_metrics
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    check(err <= 1e-5, f"eval_parity's table {got} against train --eval's "
+                       f"{want}: {err:.3g} relative (1e-5)")
+    per = {k: counts[k] / frames for k in ("sweep_stage2", "convbn_block")}
+    check(per["sweep_stage2"] > 0 and per["convbn_block"] > 0
+          and counts["convbn_block_bwd"] == counts["sweep_stage2_bwd"] == 0,
+          f"the eval path's launches {counts}")
+    # a JAX (orbax) checkpoint directory: the importer's error, not a
+    # random-weight table
+    orbax = os.path.join(ROOT, "build", "phase14", "orbax")
+    best = os.path.join(orbax, P12_EXP + "_model_best")
+    os.makedirs(best, exist_ok=True)
+    with open(os.path.join(best, "_CHECKPOINT_METADATA"), "w") as f:
+        f.write("{}")
+    try:
+        with quiet_stdout():
+            eval_parity.main(["--config", path, "--ckpt", orbax,
+                              "--limit", "1"])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("jax_checkpoint_to_torch" in raised,
+          f"an orbax directory did not raise the importer's error "
+          f"({raised!r})")
+    print(f"phase 14a: eval_parity on the KITTI fixture (default_exp7.json "
+          f"bf16, 384x256, D 64, B=1, phase 12c's _model_best): {frames} "
+          f"frames, eval forward ms a frame median "
+          f"{float(np.median(fwd_ms)):.3f} (CUDA events: "
+          f"{[round(x, 3) for x in fwd_ms]}), main() {wall:.3f} s "
+          f"({wall * 1e3 / frames:.1f} ms a frame on the host clock, the "
+          f"spawned loader's start and the model's build included); "
+          f"launches a frame: sweep {per['sweep_stage2']:g}, convcomb "
+          f"{per['convbn_block']:g}; rmse {got[0]:.5f}, rmse_refined "
+          f"{got[1]:.5f}, sil {got[2]:.5f}, sil_refined {got[3]:.5f}, "
+          f"rmse_unc {got[4]:.5f}, train --eval's within {err:.3g} "
+          f"relative (1e-5); all 2 x 9 metrics finite; an orbax directory "
+          f"raises ValueError [{card}]", flush=True)
+    return per
+
+
+def write_sweep_capture(root: str, frames: int = 2):
+    """A raw sweep capture at the rig's stored size: 128 planes of 320x256
+    (z, intensity) f32 a frame (84 MB), 1280x1024 RGB and 512x640 NIR
+    PNGs, a 120,000-point scan, the rig's LC distortion in calib.json.
+    Returns the drive name."""
+    date, drive = "2021_03_05", "2021_03_05_drive_0004_sweep"
+    base = os.path.join(root, date, drive)
+    for sub in ("sweep", "left_img", "right_img", "nir_img", "lidar"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.default_rng(14)
+    left_2_lidar = np.eye(4)
+    left_2_lidar[:3, :3] = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
+    calib = {
+        "left_P": [[1024.0, 0, 640.0, 0], [0, 1024.0, 512.0, 0],
+                   [0, 0, 1, 0]],
+        "left_2_lidar": left_2_lidar.tolist(),
+        "left_2_right": [[1, 0, 0, -0.24], [0, 1, 0, 0], [0, 0, 1, 0],
+                         [0, 0, 0, 1]],
+        "left_2_lc": [[1, 0, 0, 0.1], [0, 1, 0, 0], [0, 0, 1, 0.05],
+                      [0, 0, 0, 1]],
+        "D_lc": [-0.033918, 0.027494, -0.001691, -0.001078, 0.0]}
+    with open(os.path.join(base, "calib.json"), "w") as f:
+        json.dump(calib, f)
+    zs = np.linspace(3.0, 18.0, 128, dtype=np.float32)
+    for t in range(frames):
+        s = f"{t:06d}"
+        sweep = np.empty((128, 320, 256, 2), np.float32)
+        sweep[..., 0] = zs[:, None, None]
+        sweep[..., 1] = rng.uniform(0, 255, (128, 320, 256))
+        np.save(os.path.join(base, "sweep", s + ".npy"), sweep)
+        _velodyne_scan(rng).tofile(os.path.join(base, "lidar", s + ".bin"))
+        for side in ("left_img", "right_img"):
+            write_png(os.path.join(base, side, s + ".png"),
+                      _texture(rng, 1024, 1280))
+        write_png(os.path.join(base, "nir_img", s + ".png"),
+                  _texture(rng, 640, 512)[..., 0])
+    return drive
+
+
+def phase_sweep_convert(card):
+    """Phase 14 (b): the converter on a capture at the rig's stored size:
+    the card's undistort against its plain version on the same quantized
+    map, ms a frame split into undistort, depth maps and projection, and
+    ``convert_frame`` and the CLI on the card."""
+    import shutil
+
+    import torch
+    from depthestimation_tpu_torch import sweep_convert as tsc
+
+    root = os.path.join(ROOT, "build", "phase14", "capture")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    drive = write_sweep_capture(root)
+    write_s = time.perf_counter() - t0
+    frame = tsc.load_frame(root, drive, 0)
+    p, h, w, c = frame["sweep_arr"].shape
+    planes = np.ascontiguousarray(frame["sweep_arr"].transpose(
+        0, 3, 1, 2)).reshape(p * c, h, w)
+    umap = tsc.undistort_map(frame["K_lc"], frame["D_lc"], h, w)
+    t0 = time.perf_counter()
+    plain = tsc.remap_np(planes, umap)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    dev = torch.from_numpy(planes).cuda()
+    tsc._device_taps.cache_clear()
+    t0 = time.perf_counter()
+    idx, wts = tsc.undistort_taps(frame["K_lc"], frame["D_lc"], h, w, "cuda")
+    torch.cuda.synchronize()
+    taps_ms = (time.perf_counter() - t0) * 1e3
+    got = tsc.remap_torch(dev, idx, wts)
+    gather_ms = cuda_ms(lambda: tsc.remap_torch(dev, idx, wts), 5)
+    diff = float(np.abs(got.cpu().numpy() - plain).max())
+    span = float(planes.max() - planes.min())
+    check(diff <= 1e-5 * span, f"the card's undistort differs from its "
+                               f"plain version by {diff} (range {span})")
+    split = {"undistort": [], "depth": [], "projection": [], "frame": []}
+    for t in range(2):
+        frame = tsc.load_frame(root, drive, t)
+        t0 = time.perf_counter()
+        und, nir = tsc.undistort_frame(frame, "cuda")
+        t1 = time.perf_counter()
+        depths = tsc.depth_maps(frame)
+        t2 = time.perf_counter()
+        out = tsc.project(frame, und, nir, depths[0], depths[1])
+        t3 = time.perf_counter()
+        whole = tsc.convert_frame(frame, device="cuda")
+        t4 = time.perf_counter()
+        for k, a, b in (("undistort", t0, t1), ("depth", t1, t2),
+                        ("projection", t2, t3), ("frame", t3, t4)):
+            split[k].append((b - a) * 1e3)
+    check(whole["sweep_arr"].shape == (128, 320, 256, 2)
+          and whole["left_feat_int"].shape == (128, 256, 320)
+          and float(whole["left_mask"].sum()) > 1000
+          and np.isfinite(whole["left_depth"]).all()
+          and np.array_equal(whole["left_feat_int"], out["left_feat_int"],
+                             equal_nan=True),
+          "convert_frame's outputs: shapes, mask "
+          f"{float(whole['left_mask'].sum())}")
+    out_dir = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    with quiet_stdout():
+        done = tsc.main(["--root", root, "--drive", drive, "--frames", "1:2",
+                         "--out", out_dir])
+    cli_s = time.perf_counter() - t0
+    with np.load(os.path.join(out_dir, "000001.npz")) as npz:
+        names = sorted(npz.files)
+    check(done == [1] and names == sorted(whole), f"the CLI wrote {names}")
+    print(f"phase 14b: sweep_convert on a capture at the rig's stored size "
+          f"(128 planes of 320x256x2 f32, 1280x1024 RGB, 512x640 NIR, "
+          f"{len(frame['velodata'])} points; written in {write_s:.3f} s): "
+          f"the card's undistort of 256 planes {gather_ms:.3f} ms (CUDA "
+          f"events: the pad, the gather of four taps and the weighted sum, "
+          f"on planes and taps already on the card) against the plain "
+          f"numpy {plain_ms:.3f} ms, max abs diff {diff:.3g} (range "
+          f"{span:.1f}); the map's taps built once in {taps_ms:.3f} ms "
+          f"(host clock, numpy and the copy to the card); ms a frame: "
+          f"undistort (host to card and back, the taps kept) "
+          f"{[round(x, 3) for x in split['undistort']]}, depth maps "
+          f"{[round(x, 3) for x in split['depth']]}, projection "
+          f"{[round(x, 3) for x in split['projection']]}, convert_frame "
+          f"{[round(x, 3) for x in split['frame']]}; the CLI on one frame "
+          f"{cli_s:.3f} s (npz compressed, {len(names)} keys) [{card}]",
+          flush=True)
+
+
+def phase_lc_sandbox(card):
+    """Phase 14 (c): the LC sandbox's six rounds on the card, held to the
+    JAX script's curve."""
+    import importlib.util
+
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "lc_sandbox_torch", os.path.join(ROOT, "examples",
+                                         "lc_sandbox_torch.py"))
+    sandbox = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sandbox)
+    sandbox.run("cuda", quiet=True)               # the first call's set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet_stdout():
+        errors = sandbox.run("cuda")
+    ms = (time.perf_counter() - t0) * 1e3 / len(errors)
+    off = max(abs(a - b) for a, b in zip(errors, sandbox.JAX_CURVE))
+    check(errors[-1] < errors[0] and off <= sandbox.BOUND,
+          f"the sandbox's curve {errors} against JAX's "
+          f"{sandbox.JAX_CURVE}: {off:.3g} m (bound {sandbox.BOUND})")
+    print(f"phase 14c: lc_sandbox_torch on the card (96x64, D 32, 6 rounds "
+          f"of lc_process, planner default): mean depth errors "
+          f"{[round(e, 4) for e in errors]} m, within {off:.3g} m of JAX's "
+          f"printed curve (bound {sandbox.BOUND}); {ms:.3f} ms a round on "
+          f"the host clock [{card}]", flush=True)
+
+
+def phase_last_modules(card):
+    """Phase 14: the eval harness, the sweep converter and the LC
+    sandbox."""
+    t0 = time.perf_counter()
+    phase_eval_harness(card)
+    phase_sweep_convert(card)
+    phase_lc_sandbox(card)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3699,6 +4000,7 @@ def main() -> int:
         phase_sweep_train(card)
         phase_real_data(card)
         phase_data_parallel(card)
+        phase_last_modules(card)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

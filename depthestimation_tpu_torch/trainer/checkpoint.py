@@ -6,7 +6,9 @@ save is the best so far, each a directory under ``save_root``. JAX writes
 orbax directories; here the directory holds one ``torch.save`` file with
 the state (for a trainer: the model's and the optimizer's ``state_dict``)
 and the epoch. Warm start (``restore_params_partial``) copies every entry
-whose key and shape match and keeps the rest.
+whose key and shape match and keeps the rest. A JAX (orbax) checkpoint
+directory is not read here: ``tools/jax_checkpoint_to_torch.py`` converts
+it, on a host with JAX, into this layout.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Any
 import torch
 
 _FILE = "checkpoint.pt"
+#: files that mark a directory orbax wrote (its metadata, its OCDBT index)
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
 
 
 def _path(save_root: str, name: str) -> str:
@@ -46,7 +50,13 @@ def load_checkpoint(save_root: str, exp_name: str, target_state: Any = None,
     """Returns (state, epoch). With ``target_state`` (a dict of the same
     kind as the saved one) the loaded state must have its keys."""
     name = f"{exp_name}_model_best" if best else f"{exp_name}_ckpt"
-    payload = torch.load(os.path.join(_path(save_root, name), _FILE),
+    path = _path(save_root, name)
+    if not os.path.exists(os.path.join(path, _FILE)) and any(
+            os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is a JAX (orbax) checkpoint, not the port's: convert "
+            f"it with tools/jax_checkpoint_to_torch.py (on a host with JAX)")
+    payload = torch.load(os.path.join(path, _FILE),
                          map_location=map_location, weights_only=True)
     state = payload["state"]
     if target_state is not None and set(state) != set(target_state):

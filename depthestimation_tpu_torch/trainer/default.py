@@ -453,29 +453,38 @@ class DefaultTrainer:
         for batch in self._batches(self.val_loader):
             if self._skip(batch, "val batch"):
                 continue
-            if batch["frame_count"] == 0:
-                self.prev_output = dict(_NO_PREV)
-                self.prev_lc = dict(_NO_PREV)
-            mi_l, dmi_l, dgt_l = self._side_inputs(batch, "left")
-            dgt_l = self._with_soft_labels(dgt_l)
-            self.ensure_state(mi_l)
+            mi_l, dgt_l, refined = self._eval_frame(batch, errors)
+            if self.cfg.var.get("viz", False) or self.video_path:
+                self._visualize(mi_l, dgt_l, refined)
+        return self._finish_validation(*errors)
+
+    def _eval_frame(self, batch, errors, recurse=None, lc=True):
+        """One validation frame: the feedback reset at a trajectory's
+        first frame, the eval forward ``recurse`` times (default
+        ``self_recurse``) with the quarter-res ``prev_output`` carry and,
+        when ``lc``, the simulated LC's ``prev_lc``, then the frame's
+        metrics appended to ``errors``. Returns (numpy input, gt tensors,
+        the refined output)."""
+        if batch["frame_count"] == 0:
+            self.prev_output = dict(_NO_PREV)
+            self.prev_lc = dict(_NO_PREV)
+        mi_l, dmi_l, dgt_l = self._side_inputs(batch, "left")
+        dgt_l = self._with_soft_labels(dgt_l)
+        self.ensure_state(mi_l)
+        if lc:
             self._ensure_lc(mi_l)
 
-            for _ in range(self.self_recurse):
-                out = self._eval_step(self._with_prev(dmi_l, "left"))
-                refined = out["output_refined"][-1]
-                self.prev_output = {"left": refined[:, :, ::4, ::4],
+        for _ in range(self.self_recurse if recurse is None else recurse):
+            out = self._eval_step(self._with_prev(dmi_l, "left"))
+            refined = out["output_refined"][-1]
+            self.prev_output = {"left": refined[:, :, ::4, ::4],
+                                "right": None}
+            if lc and self.lc is not None and self.lc.initialized:
+                with torch.inference_mode():
+                    self.prev_lc = {"left": self._run_lc(refined, dmi_l),
                                     "right": None}
-                if self.lc is not None and self.lc.initialized:
-                    with torch.inference_mode():
-                        self.prev_lc = {"left": self._run_lc(refined, dmi_l),
-                                        "right": None}
-
-            if self.cfg.var.get("viz", False) or self.video_path:
-                self._visualize(mi_l, dgt_l, out["output_refined"][-1])
-            self._frame_metrics(out["output"][-1], out["output_refined"][-1],
-                                dgt_l, errors)
-        return self._finish_validation(*errors)
+        self._frame_metrics(out["output"][-1], refined, dgt_l, errors)
+        return mi_l, dgt_l, refined
 
     def _frame_metrics(self, dpv, dpv_ref, dgt, errors):
         """The KITTI depth metrics of the low- and high-res depth and the

@@ -23,7 +23,8 @@ from depthestimation_tpu_torch.ops import cuda_lib
 print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m in sys.modules if m.split(".")[0] in
-                      ("jax", "jaxlib", "flax", "depthestimation_tpu")),
+                      ("jax", "jaxlib", "flax", "optax", "orbax",
+                       "depthestimation_tpu")),
     "imaging": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("PIL", "cv2")),
     "built": cuda_lib._library is not None,
@@ -51,7 +52,8 @@ def test_port_imports_no_jax():
                  "runtime.planner_runtime", "runtime.sensor_sampling",
                  "models.sweep", "losses.sweep_loss", "trainer.sweep",
                  "native.kittiops", "data.velodyne", "data.image",
-                 "data.kitti", "data.ilim", "models.packnet"):
+                 "data.kitti", "data.ilim", "models.packnet", "eval_parity",
+                 "sweep_convert"):
         assert f"depthestimation_tpu_torch.{name}" in got["modules"], name
     assert got["foreign"] == [], f"the port pulled in {got['foreign']}"
     assert "jax" not in got["foreign"]
@@ -61,22 +63,28 @@ def test_port_imports_no_jax():
 
 
 def test_sources_name_no_jax():
-    """No module of the port, nor chip_smoke.py, imports ``jax`` or the
-    JAX package, not even inside a function (a static check: the probe
-    above only sees what an import runs)."""
+    """No module of the port, nor chip_smoke.py or the port's LC sandbox,
+    imports ``jax``, orbax or the JAX package, not even inside a function
+    (a static check: the probe above only sees what an import runs). The
+    checkpoint importer, which reads orbax, lives outside the package."""
     import ast
 
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    importer = os.path.join(ROOT, "tools", "jax_checkpoint_to_torch.py")
+    assert os.path.isfile(importer)
+    assert "orbax" in open(importer).read()
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "lc_sandbox_torch.py")]
     for base, _, files in os.walk(os.path.join(ROOT,
                                                "depthestimation_tpu_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 52
-    foreign = ("jax", "jaxlib", "flax", "optax", "depthestimation_tpu")
+    assert len(paths) >= 55
+    foreign = ("jax", "jaxlib", "flax", "optax", "orbax",
+               "depthestimation_tpu")
     # the card's host has neither: the data path reads PNGs itself
     # (utils/visual.py's --viz panels import cv2 where they run)
     imaging = ("PIL", "cv2")
     data_path = [os.path.join(ROOT, "depthestimation_tpu_torch", d)
-                 for d in ("data", "native")]
+                 for d in ("data", "native", "sweep_convert.py")]
     for path in paths:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

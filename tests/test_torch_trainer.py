@@ -31,26 +31,61 @@ set against one without (the port ignores them), ``self_recurse`` and
 --write_video``) cycle through ``main(..., device="cpu")`` and
 ``NetRuntime(save_root=...)``, and the
 LC-on epoch with pose noise (finite losses, ``prev_lc`` fed back).
+
+JAX checkpoint import and the KITTI eval harness (second module fixture,
+on the JAX run's trainer and its compiled step): the epoch's validation
+saved ``_model_best`` (epoch 1) through JAX's ``save_checkpoint``; one
+more step, the learning rate halved and ``_ckpt`` saved (epoch 2);
+``tools/jax_checkpoint_to_torch.py`` converts the save root. Held:
+
+1. the model ``state_dict`` equal to ``from_jax_params`` of the JAX state,
+   bit for bit; Adam's moments equal to optax's ``mu`` / ``nu`` after the
+   layout conversion, at the index ``make_optimizer`` gives each
+   parameter; the step and the halved learning rate;
+2. both sides ``resume``: the port's optimizer applies optax's update of
+   one fed gradient at atol 1e-6 (tests/test_torch_train_step.py's
+   tolerance for one update), and one more step of each side on the same
+   batch agrees as the trainer's steps do;
+3. ``--init_model`` of the converted ``_model_best``;
+4. a config whose model differs raises, naming the first mismatching key,
+   and writes nothing;
+5. the port's ``eval_parity.main`` against JAX's root ``eval_parity.py``
+   (``sys.argv``, its printed table) on ``--synthetic --limit 2`` with
+   those weights: every entry at rtol 1e-4 (measured 3.5e-6: one f32
+   forward of each package on the same weights, separately compiled);
+6. a JAX (orbax) directory makes ``load_checkpoint`` and ``resume`` raise
+   a ``ValueError`` that names it and the tool.
+
+Plus ``from_jax_train_state`` on hand-built optax-shaped dicts (numpy
+only, no orbax) for ``adam`` and ``adamw``.
 """
 
+import importlib.util
 import inspect
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+import eval_parity as jeval
 import train as jtrain
 from depthestimation_tpu.config import load_config as jload
 from depthestimation_tpu.data.video_synthetic import (
     assemble_inputs as jassemble)
 from depthestimation_tpu.losses import get_loss as jget_loss
 from depthestimation_tpu.models import get_model as jget_model
+from depthestimation_tpu.parallel.train_step import (
+    set_learning_rate as jset_lr)
+from depthestimation_tpu.trainer import checkpoint as jckpt
 from depthestimation_tpu.trainer import get_trainer as jget_trainer
 from depthestimation_tpu.utils.logger import init_logger as jlogger
+from depthestimation_tpu_torch import eval_parity
 from depthestimation_tpu_torch import train as ttrain
 from depthestimation_tpu_torch.config import load_config
 from depthestimation_tpu_torch.data.video_synthetic import (assemble_inputs,
@@ -58,12 +93,15 @@ from depthestimation_tpu_torch.data.video_synthetic import (assemble_inputs,
 from depthestimation_tpu_torch.losses import get_loss
 from depthestimation_tpu_torch.models import get_model
 from depthestimation_tpu_torch.parallel import train_step as ts
+from depthestimation_tpu_torch.parallel.train_step import make_optimizer
 from depthestimation_tpu_torch.runtime.net_runtime import NetRuntime
 from depthestimation_tpu_torch.trainer import checkpoint as ckpt
 from depthestimation_tpu_torch.trainer.default import DefaultTrainer
 from depthestimation_tpu_torch.trainer.factory import get_trainer
 from depthestimation_tpu_torch.utils.logger import init_logger
-from depthestimation_tpu_torch.weights import from_jax_params
+from depthestimation_tpu_torch.weights import (_convert, _walk,
+                                               from_jax_params,
+                                               from_jax_train_state)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "test_tiny.json")
@@ -109,7 +147,7 @@ def jax_run(tmp_path_factory):
     out = np_tree(tr._rollout_fn(var1, stacked, static, None, None))
     return {"var0": var0, "var1": var1, "losses": tr._last_epoch_losses,
             "metrics": {k: tr.foutput[k][-1] for k in KEYS},
-            "frames": frames, "rollout": out}
+            "frames": frames, "rollout": out, "trainer": tr, "root": root}
 
 
 def port_model(variables, nmode="exp7"):
@@ -403,3 +441,310 @@ def test_unported_paths_raise(tmp_path):
     jreal.data.dataset_path = str(tmp_path)
     with pytest.raises(FileNotFoundError, match="training.txt"):
         jtrain.build_loaders(jreal, False)
+
+
+# -- JAX checkpoint import and the eval harness -----------------------------
+
+EXP = "test_tiny"
+LR = 1e-4
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_checkpoint_to_torch",
+        os.path.join(ROOT, "tools", "jax_checkpoint_to_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _write_config(path, **var):
+    raw = json.load(open(CONFIG))
+    raw["var"].update(var)
+    json.dump(raw, open(path, "w"))
+    return path
+
+
+def _jax_step(tr, batch, shardings):
+    """One JAX train step of ``tr`` on ``batch`` with no ``prev_output``,
+    the state put on the shardings the epoch left it on, so that the
+    step runs the program the epoch compiled."""
+    tr.prev_output = {"left": None, "right": None}
+    mi_l, gt_l = jassemble(batch, "left", False)
+    mi_r, gt_r = jassemble(batch, "right", False)
+    tr.state = jax.device_put(tr.state, shardings)
+    dmi_l, dgt_l = tr._device_inputs(mi_l, gt_l, "left")
+    dmi_r, dgt_r = tr._device_inputs(mi_r, gt_r, "right")
+    tr.rng, rng = jax.random.split(tr.rng)
+    tr.state, loss, _ = tr._train_step(tr.state, dmi_l, dmi_r, dgt_l, dgt_r,
+                                       rng)
+    return float(loss)
+
+
+@pytest.fixture(scope="module")
+def imported(jax_run, tmp_path_factory):
+    tr, jroot = jax_run["trainer"], jax_run["root"]
+    # the epoch's validation saved this state as _model_best and _ckpt
+    shardings = jax.tree_util.tree_map(lambda x: x.sharding, tr.state)
+    best = np_tree(tr.state)
+    train_loader, _ = jtrain.build_loaders(jload(CONFIG), True)
+    it = iter(train_loader.enumerate())
+    batches = [next(it) for _ in range(2)]
+    train_loader.stop()
+    _jax_step(tr, batches[0], shardings)
+    tr.state = tr.state.replace(opt_state=jset_lr(tr.state.opt_state,
+                                                  LR * 0.5))
+    jckpt.save_checkpoint(jroot, EXP, tr.state, 2)
+    last = np_tree(tr.state)
+    history = json.load(open(os.path.join(jroot, EXP + ".json")))
+
+    dst = str(tmp_path_factory.mktemp("port_ckpt"))
+    done = _tool().convert(CONFIG, jroot, dst)
+    # JAX resumes _ckpt into the same trainer (its compiled step); optax's
+    # update of a fed gradient, then one more step on the second batch
+    tr.resume()
+    resumed = np_tree(tr.state)
+    rs = np.random.RandomState(4)
+    fed = jax.tree_util.tree_map(
+        lambda p: rs.randn(*p.shape).astype(np.float32), last.params)
+    upd, _ = jax.jit(tr.tx.update)(fed, resumed.opt_state, resumed.params)
+    fed_after = np_tree(optax.apply_updates(resumed.params, upd))
+    loss3 = _jax_step(tr, batches[1], shardings)
+    after = np_tree({"params": tr.state.params,
+                     "batch_stats": tr.state.batch_stats})
+    return {"jroot": jroot, "dst": dst, "done": done, "best": best,
+            "last": last, "history": history, "batch": batches[1],
+            "loss3": loss3, "after": after, "fed": fed,
+            "fed_after": fed_after}
+
+
+def test_import_is_bit_equal(imported):
+    assert imported["done"] == {
+        f"{EXP}_model_best": (1, int(imported["best"].step)),
+        f"{EXP}_ckpt": (2, int(imported["best"].step) + 1)}
+    cfg = load_config(CONFIG)
+    model = get_model(cfg, "cpu", seed=0)
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in make_optimizer(cfg, model).param_groups
+             for p in g["params"]]
+    for best, name in ((True, "best"), (False, "last")):
+        state, epoch = ckpt.load_checkpoint(imported["dst"], EXP, best=best)
+        jstate = imported[name]
+        assert epoch == (1 if best else 2)
+        want = from_jax_params({"params": jstate.params,
+                                "batch_stats": jstate.batch_stats})
+        assert set(state["model"]) == set(want) == set(model.state_dict())
+        for k, v in want.items():
+            assert torch.equal(state["model"][k], v), k
+        # optax's ScaleByAdamState: after the two masked decays
+        adam = jstate.opt_state.inner_state[2][0]
+        opt = state["optimizer"]
+        lr = float(np.float32(LR if best else LR * 0.5))   # optax's f32
+        assert [g["lr"] for g in opt["param_groups"]] == [lr, lr]
+        assert sorted(opt["state"]) == list(range(len(order)))
+        mu = dict(_convert(p, x) for p, x in _walk(np_tree(adam.mu)))
+        nu = dict(_convert(p, x) for p, x in _walk(np_tree(adam.nu)))
+        for i, k in enumerate(order):
+            s = opt["state"][i]
+            assert float(s["step"]) == float(adam.count) == \
+                float(jstate.step)
+            assert torch.equal(s["exp_avg"], mu[k]), k
+            assert torch.equal(s["exp_avg_sq"], nu[k]), k
+    assert json.load(open(os.path.join(imported["dst"], EXP + ".json"))) == \
+        imported["history"]
+
+
+def _resumed(imported, name):
+    cfg = load_config(CONFIG)
+    tr = DefaultTrainer(0, get_model(cfg, "cpu", seed=3), get_loss(cfg),
+                        init_logger(name), imported["dst"], cfg)
+    tr.ensure_state()
+    tr.resume()
+    return tr
+
+
+def test_resumed_update_matches_optax(imported):
+    """The imported moments, step and rate give optax's update of one fed
+    gradient (tests/test_torch_train_step.py's atol 1e-6)."""
+    tr = _resumed(imported, "t_ckpt_fed")
+    assert tr.i_epoch == 2
+    assert {g["lr"] for g in tr.state.optimizer.param_groups} == {
+        float(np.float32(LR * 0.5))}
+    fed = from_jax_params({"params": imported["fed"]})
+    for k, p in tr.model.named_parameters():
+        p.grad = fed[k].clone()
+    tr.state.optimizer.step()
+    want = from_jax_params({"params": imported["fed_after"]})
+    for k, p in tr.model.named_parameters():
+        torch.testing.assert_close(p.detach(), want[k], rtol=0, atol=1e-6)
+
+
+def test_resumed_step_matches_jax(imported):
+    """One step of each side from the resumed state on the same batch: the
+    loss at rtol 1e-5 (tests/test_torch_train_step.py), the parameters as
+    one vector at rel-L2 1e-3 and their update at 0.1
+    (tests/test_torch_trainer.py; measured 2e-8 and 1e-4: a handful of
+    near-zero gradients flip Adam's step of about lr)."""
+    tr = _resumed(imported, "t_ckpt_step")
+    start = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+    batch = imported["batch"]
+    _, dmi_l, dgt_l = tr._side_inputs(batch, "left", True)
+    _, dmi_r, dgt_r = tr._side_inputs(batch, "right", True)
+    tr.state, loss, _ = tr._train_step(
+        tr.state, tr._with_prev(dmi_l, "left"), tr._with_prev(dmi_r, "right"),
+        tr._with_soft_labels(dgt_l), tr._with_soft_labels(dgt_r),
+        tr.generator)
+    np.testing.assert_allclose(loss.item(), imported["loss3"], rtol=1e-5)
+    want = from_jax_params(imported["after"])
+    names = list(start)
+
+    def flat(sd):
+        return torch.cat([sd[k].flatten() for k in names])
+
+    own = {k: p.detach() for k, p in tr.model.named_parameters()}
+    assert rel(flat(own), flat(want)) <= 1e-3
+    assert rel(flat(own) - flat(start), flat(want) - flat(start)) <= 0.1
+
+
+def test_init_model_reads_the_converted_best(imported, tmp_path,
+                                             monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    # the validation's tensorboard scalars import TensorFlow (about 17 s);
+    # this test holds the warm start only
+    monkeypatch.setattr(DefaultTrainer, "_tensorboard", lambda *a: None)
+    raw = json.load(open(CONFIG))
+    raw["data"]["exp_name"] = "warm"
+    path = str(tmp_path / "warm.json")
+    json.dump(raw, open(path, "w"))
+    warm = ttrain.main(["--config", path, "--synthetic", "--eval",
+                        "--init_model",
+                        os.path.join(imported["dst"], f"{EXP}_model_best")],
+                       device="cpu")
+    want = from_jax_params({"params": imported["best"].params,
+                            "batch_stats": imported["best"].batch_stats})
+    for k, p in warm.model.named_parameters():
+        assert torch.equal(p.detach(), want[k]), k
+
+
+def test_a_different_model_raises_and_names_the_key(imported, tmp_path):
+    path = _write_config(str(tmp_path / "narrow.json"), feature_dim=8,
+                         ndepth=8)
+    model = get_model(load_config(path), "cpu")
+    own = model.state_dict()
+    got = from_jax_params({"params": imported["last"].params,
+                           "batch_stats": imported["last"].batch_stats})
+    first = next(k for k in sorted(set(own) | set(got))
+                 if k not in own or k not in got
+                 or own[k].shape != got[k].shape)
+    dst = str(tmp_path / "out")
+    with pytest.raises(ValueError, match="does not match the model") as e:
+        _tool().convert(path, imported["jroot"], dst)
+    assert first in str(e.value)
+    assert not os.path.exists(dst)
+
+
+def test_eval_table_matches_jax(imported, capsys, monkeypatch):
+    argv = ["--config", CONFIG, "--synthetic", "--limit", "2"]
+    monkeypatch.setattr(sys, "argv",
+                        ["eval_parity.py"] + argv + ["--ckpt",
+                                                     imported["jroot"]])
+    jeval.main()
+    out = capsys.readouterr().out
+    want = json.loads(out[out.index("{\n"):])
+    got = eval_parity.main(argv + ["--ckpt", imported["dst"]], device="cpu")
+    assert json.loads(json.dumps(got)) == got
+    assert got["frames"] == want["frames"] == 2
+    assert set(got) == set(want)
+    for scale in ("low_res", "refined"):
+        assert set(got[scale]) == set(want[scale])
+        for k, v in want[scale].items():
+            np.testing.assert_allclose(got[scale][k], v, rtol=1e-4,
+                                       err_msg=f"{scale} {k}")
+    np.testing.assert_allclose(got["rmse_unc"], want["rmse_unc"], rtol=1e-4)
+    assert np.isfinite(got["rmse_unc"])
+
+
+def test_orbax_directory_raises_a_clear_error(imported):
+    with pytest.raises(ValueError, match="orbax.*jax_checkpoint_to_torch"):
+        ckpt.load_checkpoint(imported["jroot"], EXP)
+    cfg = load_config(CONFIG)
+    tr = DefaultTrainer(0, get_model(cfg, "cpu"), get_loss(cfg),
+                        init_logger("t_ckpt_orbax"), imported["jroot"], cfg)
+    tr.ensure_state()
+    with pytest.raises(ValueError, match=f"{EXP}_model_best.*orbax"):
+        tr.resume(best=True)
+
+
+# -- numpy only: hand-built optax-shaped states ---------------------------
+
+class _Tiny(torch.nn.Module):
+    """Flax auto-names as attribute names, one module of each layout (a
+    BatchNorm as the port's: no ``num_batches_tracked``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv_0 = torch.nn.Conv2d(3, 4, 3)
+        self.BatchNorm_0 = torch.nn.Module()
+        self.BatchNorm_0.weight = torch.nn.Parameter(torch.ones(4))
+        self.BatchNorm_0.bias = torch.nn.Parameter(torch.zeros(4))
+        self.BatchNorm_0.register_buffer("running_mean", torch.zeros(4))
+        self.BatchNorm_0.register_buffer("running_var", torch.ones(4))
+        self.ConvTranspose_0 = torch.nn.ConvTranspose2d(4, 2, 4)
+        self.Conv3d_0 = torch.nn.Conv3d(2, 5, 3, bias=False)
+
+
+def _tiny_tree(rs, scale=1.0):
+    def r(*shape):
+        return (scale * rs.randn(*shape)).astype(np.float32)
+    return {"Conv_0": {"kernel": r(3, 3, 3, 4), "bias": r(4)},
+            "BatchNorm_0": {"scale": r(4), "bias": r(4)},
+            "ConvTranspose_0": {"kernel": r(4, 4, 4, 2), "bias": r(2)},
+            "Conv3d_0": {"kernel": r(3, 3, 3, 2, 5)}}
+
+
+@pytest.mark.parametrize("optim", ["adam", "adamw"])
+def test_from_jax_train_state_numpy(optim):
+    rs = np.random.RandomState(0)
+    params = _tiny_tree(rs)
+    adam = {"count": np.asarray(7, np.int32), "mu": _tiny_tree(rs, 1e-3),
+            "nu": _tiny_tree(rs, 1e-6)}
+    # what orbax restores: NamedTuples as dicts, EmptyState as None
+    inner = ([{"inner_state": None}, {"inner_state": None}, [adam, None]]
+             if optim == "adam" else [[adam, {"inner_state": None}, None]])
+    state = {"step": np.asarray(7, np.int32), "params": params,
+             "batch_stats": {"BatchNorm_0": {"mean": rs.randn(4),
+                                             "var": rs.rand(4)}},
+             "opt_state": {"count": np.asarray(7, np.int32),
+                           "hyperparams": {"learning_rate":
+                                           np.asarray(2.5e-5, np.float32)},
+                           "inner_state": inner}}
+    cfg = load_config(CONFIG)
+    cfg.train.optim = optim
+    model = _Tiny()
+    opt = make_optimizer(cfg, model)
+    sd, opt_sd, step = from_jax_train_state(state, model, opt)
+    assert step == 7
+    model.load_state_dict(sd)
+    opt.load_state_dict(opt_sd)
+    assert torch.equal(model.Conv_0.weight.detach(), torch.from_numpy(
+        params["Conv_0"]["kernel"].transpose(3, 2, 0, 1).copy()))
+    assert torch.equal(model.Conv3d_0.weight.detach(), torch.from_numpy(
+        params["Conv3d_0"]["kernel"].transpose(4, 3, 0, 1, 2).copy()))
+    # each parameter's moments, transposed as its kernel, at its index
+    for group in opt.param_groups:
+        assert group["lr"] == pytest.approx(2.5e-5)
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu = dict(_convert(p, x) for p, x in _walk(adam["mu"]))
+    nu = dict(_convert(p, x) for p, x in _walk(adam["nu"]))
+    for p, s in opt.state.items():
+        assert float(s["step"]) == 7.0
+        assert torch.equal(s["exp_avg"], mu[names[id(p)]])
+        assert torch.equal(s["exp_avg_sq"], nu[names[id(p)]])
+    assert len(opt.state) == 7
+    kernel = opt.state[model.ConvTranspose_0.weight]["exp_avg"]
+    assert torch.equal(kernel, torch.from_numpy(
+        adam["mu"]["ConvTranspose_0"]["kernel"].transpose(2, 3, 0, 1).copy()))
+
+    del adam["nu"]["Conv_0"]["bias"]
+    with pytest.raises(ValueError, match=r"nu tree .* no Conv_0\.bias"):
+        from_jax_train_state(state, model, opt)
