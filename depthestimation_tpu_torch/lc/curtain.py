@@ -31,6 +31,7 @@ from depthestimation_tpu_torch.ops.dpv import (EPS, intensity_to_confidence,
 from depthestimation_tpu_torch.ops.geometry import (depth_to_pts,
                                                     intr_scale_unit)
 from depthestimation_tpu_torch.ops.resample import interp
+from depthestimation_tpu_torch.utils import profiling
 
 
 def _normalize_columns(field):
@@ -84,6 +85,12 @@ class LightCurtain:
     # -- setup (host side) --------------------------------------------------
 
     def init(self, PARAMS: dict):
+        """Build the devices, planners and field warps (their grids
+        included) from ``PARAMS``: the span ``setup.lc_init``."""
+        with profiling.span("setup.lc_init"):
+            self._init(PARAMS)
+
+    def _init(self, PARAMS: dict):
         self.PARAMS = PARAMS
         dev = self.device
         size_lc = PARAMS["size_lc"]

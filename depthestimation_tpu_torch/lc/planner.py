@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from depthestimation_tpu_torch.utils import profiling
+
 NEG = -1e30
 
 
@@ -64,21 +66,23 @@ class PlannerRT:
 
     def get_design_points(self, cost_field) -> torch.Tensor:
         """cost_field [..., R, C] -> design points [..., C, 2] (x, z), one
-        solve per leading index, all in one batched pass."""
-        field = torch.as_tensor(cost_field, dtype=torch.float32,
-                                device=self._phi.device)
-        lead = field.shape[:-2]
-        flat = field.reshape((-1,) + field.shape[-2:])
-        if self.ddphi_max is None:
-            if self._penalty is None:
-                self._penalty = _velocity_penalty(self._phi,
-                                                  float(self.dphi_max))
-            rs = _dp_solve(flat, self._penalty)
-        else:
-            rs = _dp_solve_accel(flat, self._phi, float(self.dphi_max),
-                                 float(self.ddphi_max))
-        cols = torch.arange(self.C, device=rs.device)
-        return self._xz[cols, rs].reshape(lead + (self.C, 2))
+        solve per leading index, all in one batched pass (the span
+        ``lc.plan.dp``)."""
+        with profiling.span("lc.plan.dp"):
+            field = torch.as_tensor(cost_field, dtype=torch.float32,
+                                    device=self._phi.device)
+            lead = field.shape[:-2]
+            flat = field.reshape((-1,) + field.shape[-2:])
+            if self.ddphi_max is None:
+                if self._penalty is None:
+                    self._penalty = _velocity_penalty(self._phi,
+                                                      float(self.dphi_max))
+                rs = _dp_solve(flat, self._penalty)
+            else:
+                rs = _dp_solve_accel(flat, self._phi, float(self.dphi_max),
+                                     float(self.ddphi_max))
+            cols = torch.arange(self.C, device=rs.device)
+            return self._xz[cols, rs].reshape(lead + (self.C, 2))
 
 
 def _velocity_penalty(phi: torch.Tensor, dphi_max: float) -> torch.Tensor:

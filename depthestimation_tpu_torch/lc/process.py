@@ -16,6 +16,7 @@ import torch
 from depthestimation_tpu_torch.lc.curtain import LightCurtain
 from depthestimation_tpu_torch.ops.dpv import EPS, spread_dpv, upsample_dpv
 from depthestimation_tpu_torch.ops.ufield import UFieldParams, gen_ufield
+from depthestimation_tpu_torch.utils import profiling
 
 
 @torch.no_grad()
@@ -38,6 +39,8 @@ def lc_process(bv_refined, dmaps_up, intr_up, lc: LightCurtain,
         one; the inputs are then at that resolution).
 
     Returns [B, D, H, W] log DPV fused with the curtain measurements.
+    Each iteration opens the spans ``lc.ufield``, ``lc.plan``, ``lc.sense``
+    and ``lc.fuse`` (``utils/profiling.py``).
     """
     params = dict(params or {"step": [0.5], "spread_iter": 2, "spread_n": 5})
     if planner not in ("default", "m1", "sweep"):
@@ -60,31 +63,38 @@ def lc_process(bv_refined, dmaps_up, intr_up, lc: LightCurtain,
     # iteration would be an identity that costs two passes over the volume
     curr = torch.clamp(torch.exp(final), EPS, 1.0)
     for _ in range(int(iterations)):
-        uf, _ = gen_ufield(curr, lc.d_candi, intr_up, uf_params, log=False)
-        if planner == "default":
-            paths = lc.plan_default(uf, *plan_args, params)
-        elif planner == "m1":
-            paths = lc.plan_m1(uf, *plan_args, params, generator)
-        else:
-            paths = lc.plan_sweep(uf, *plan_args, params).expand(
-                (curr.shape[0], -1, -1, -1))
+        with profiling.span("lc.ufield"):
+            uf, _ = gen_ufield(curr, lc.d_candi, intr_up, uf_params,
+                               log=False)
+        with profiling.span("lc.plan"):
+            if planner == "default":
+                paths = lc.plan_default(uf, *plan_args, params)
+            elif planner == "m1":
+                paths = lc.plan_m1(uf, *plan_args, params, generator)
+            else:
+                paths = lc.plan_sweep(uf, *plan_args, params).expand(
+                    (curr.shape[0], -1, -1, -1))
 
         # paths [B, P, N, 2] against one depth map per item
-        lc_dpvs = sense(dmaps_up[:, None], paths, generator=generator)
+        with profiling.span("lc.sense"):
+            lc_dpvs = sense(dmaps_up[:, None], paths, generator=generator)
 
-        # Per-pixel normalization telescopes, so the P measurements fuse as
-        # one product; floor it, since EPS^P underflows float32 where every
-        # curtain missed and the normalize after it would be 0/0.
-        m = torch.clamp(torch.nan_to_num(lc_dpvs), EPS, 1.0).prod(dim=1)
-        curr = curr * torch.clamp(m, 1e-30, 1.0)
+        with profiling.span("lc.fuse"):
+            # Per-pixel normalization telescopes, so the P measurements
+            # fuse as one product; floor it, since EPS^P underflows float32
+            # where every curtain missed and the normalize after it would
+            # be 0/0.
+            m = torch.clamp(torch.nan_to_num(lc_dpvs), EPS, 1.0).prod(dim=1)
+            curr = curr * torch.clamp(m, 1e-30, 1.0)
 
-        spread_iter = int(params.get("spread_iter", 0))
-        if spread_iter:
-            # the spread renormalizes, and a per-pixel scalar divides
-            # straight through the linear box filter: no normalize before it
-            curr = spread_dpv(curr, int(params.get("spread_n", 5)),
-                              iters=spread_iter)
-        else:
-            curr = curr / curr.sum(dim=1, keepdim=True)
-        curr = torch.clamp(curr, EPS, 1.0)
+            spread_iter = int(params.get("spread_iter", 0))
+            if spread_iter:
+                # the spread renormalizes, and a per-pixel scalar divides
+                # straight through the linear box filter: no normalize
+                # before it
+                curr = spread_dpv(curr, int(params.get("spread_n", 5)),
+                                  iters=spread_iter)
+            else:
+                curr = curr / curr.sum(dim=1, keepdim=True)
+            curr = torch.clamp(curr, EPS, 1.0)
     return upsample_dpv(torch.log(curr), d, log=True)

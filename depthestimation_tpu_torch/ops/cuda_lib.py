@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from depthestimation_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -136,20 +138,24 @@ def library() -> KernelLibrary:
 
 def _load() -> KernelLibrary:
     """Build the library unless this source hash's build exists, and load
-    it."""
-    srcs = _sources()
-    digest = hashlib.sha256()
-    for p in srcs + sorted(CSRC.glob("*.cuh")):
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"libde_kernels_{digest.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not target.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        log = _build(srcs, target)
-    return KernelLibrary(target, time.perf_counter() - t0, log)
+    it: the span ``setup.kernel_lib``, whose attribute ``built`` says
+    whether this call built it."""
+    with profiling.span("setup.kernel_lib") as sp:
+        srcs = _sources()
+        digest = hashlib.sha256()
+        for p in srcs + sorted(CSRC.glob("*.cuh")):
+            digest.update(p.name.encode())
+            digest.update(p.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        target = BUILD_DIR / f"libde_kernels_{digest.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        built = not target.is_file()
+        sp.note(built=built)
+        if built:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            log = _build(srcs, target)
+        return KernelLibrary(target, time.perf_counter() - t0, log)
 
 
 def launch(name: str, *args, device) -> None:

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from depthestimation_tpu_torch.parallel import mesh
-from depthestimation_tpu_torch.utils import precision
+from depthestimation_tpu_torch.utils import precision, profiling
 
 
 @dataclasses.dataclass
@@ -110,35 +110,49 @@ def make_train_step(loss_fn: Callable,
     mean of the ranks' losses, JAX's global loss), and the loss returned
     is that mean. ``DistributedDataParallel`` is not used: its reducer
     hooks fire per backward pass and expect each parameter once, where a
-    step runs two forwards and a nmode may leave modules unused."""
+    step runs two forwards and a nmode may leave modules unused.
+
+    The step opens the spans ``step`` and, under it, ``step.forward``
+    (twice), ``step.loss``, ``step.backward``, ``step.grad_allreduce``
+    (more than one rank), ``step.optimizer`` and ``step.lc`` (with
+    ``lc_fn``): ``utils/profiling.py``, free unless recorded or
+    profiled."""
 
     def step(state: TrainState, mi_l: dict, mi_r: dict, gt_l: dict,
              gt_r: dict, generator: torch.Generator | None = None):
-        model, opt = state.model, state.optimizer
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        with precision.no_tf32():
-            out_l = model(mi_l, generator=generator)
-            out_r = model(mi_r, generator=generator)
-            loss = loss_fn([out_l, out_r], [gt_l, gt_r])
-            loss.backward()
-        loss = loss.detach()
-        if mesh.world() > 1:
-            mesh.all_reduce_grads(model.parameters())
-            loss = mesh.all_reduce_(loss.clone()) / mesh.world()
-        opt.step()
-        state.step += 1
-        ref_l = out_l["output_refined"][-1]
-        ref_r = out_r["output_refined"][-1]
-        aux = {"prev_output_left": _quarter(ref_l),
-               "prev_output_right": _quarter(ref_r),
-               "refined_left": ref_l.detach(),
-               "refined_right": ref_r.detach()}
-        if lc_fn is not None:
-            aux["prev_lc_left"], aux["prev_lc_right"] = lc_fn(
-                aux["refined_left"], aux["refined_right"], mi_l, mi_r,
-                generator)
-        return state, loss, aux
+        with profiling.span(profiling.STEP):
+            model, opt = state.model, state.optimizer
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            with precision.no_tf32():
+                with profiling.span("step.forward"):
+                    out_l = model(mi_l, generator=generator)
+                with profiling.span("step.forward"):
+                    out_r = model(mi_r, generator=generator)
+                with profiling.span("step.loss"):
+                    loss = loss_fn([out_l, out_r], [gt_l, gt_r])
+                with profiling.span("step.backward"):
+                    loss.backward()
+            loss = loss.detach()
+            if mesh.world() > 1:
+                with profiling.span("step.grad_allreduce"):
+                    mesh.all_reduce_grads(model.parameters())
+                    loss = mesh.all_reduce_(loss.clone()) / mesh.world()
+            with profiling.span("step.optimizer"):
+                opt.step()
+            state.step += 1
+            ref_l = out_l["output_refined"][-1]
+            ref_r = out_r["output_refined"][-1]
+            aux = {"prev_output_left": _quarter(ref_l),
+                   "prev_output_right": _quarter(ref_r),
+                   "refined_left": ref_l.detach(),
+                   "refined_right": ref_r.detach()}
+            if lc_fn is not None:
+                with profiling.span("step.lc"):
+                    aux["prev_lc_left"], aux["prev_lc_right"] = lc_fn(
+                        aux["refined_left"], aux["refined_right"], mi_l,
+                        mi_r, generator)
+            return state, loss, aux
 
     return step
 
