@@ -31,9 +31,12 @@ Phases, one line each (a failed phase exits non-zero before the result):
    device times and the sum a flow step launches), and the flat conv3d op
    (forward, dx, dW) at Base3D's layer shape in bf16 and f32 beside
    cuDNN's conv3d and the port's flat ``Conv3d``, each bit-equal over two
-   launches; and the shapes of phase 11's training paths (nmode lc's
+   launches; the shapes of phase 11's training paths (nmode lc's
    Base3D entry layer C=4 -> F=32 at N=128, 64x80; the encoder's fused
-   layers at 320x256 with 4 images a call), forward and backward;
+   layers at 320x256 with 4 images a call), forward and backward; and the
+   light-curtain planner's DP kernel at the LC-on step's solve (48 fields
+   of 128 ranges on 768 rays) bit-equal to its plain version, each one's
+   event and device ms and launches a solve;
 4. the server: ``NetRuntime`` (mode ``mono_lc``, ``real_sensor.json``,
    320x256, feature_dim 64, D 64, bf16, seeded weights) answers 4 frames;
    every output must be finite with depth in [d_min, d_max], and each
@@ -63,7 +66,8 @@ Phases, one line each (a failed phase exits non-zero before the result):
    flat Base3D route (``tpu.convcomb_pallas: false, tpu.combine_pallas:
    true``: per step 2 sweep, 76 convbn2d and 16 tap_combine launches forward
    and backward, no convcomb launch; rule-4 gradients; one B=1 step for
-   its counts) and (b) on the default route; for each the LC-on and LC-off
+   its counts) and (b) on the default route; one planner DP launch a
+   solve, 5 a step; for each the LC-on and LC-off
    step ms in turns, the step's split (forward, loss, backward, Adam,
    lc_process and the planner's DP inside it) and peak memory;
 9. flow training (``configs/sintel_flow.json``: PWCLite, UnFlowLoss,
@@ -1310,6 +1314,9 @@ def phase_tail(card):
 
 # ------------------------------------------------------------ phase 8
 
+#: planner DP launches a LC-on step: 5 iterations, one batched solve each
+LC_DP_LAUNCHES = 5
+
 def _lc_route(card, tag, keys, want, rule4: bool):
     """The LC-on train step at B=8 on one Base3D route (``keys``: its
     ``tpu`` settings): 4 Adam steps with the ``prev_output`` / ``prev_lc``
@@ -1321,6 +1328,7 @@ def _lc_route(card, tag, keys, want, rule4: bool):
     from depthestimation_tpu_torch.lc.curtain import LightCurtain
     from depthestimation_tpu_torch.losses import get_loss
     from depthestimation_tpu_torch.models import get_model
+    from depthestimation_tpu_torch.ops.planner_dp_kernel import planner_dp
     from depthestimation_tpu_torch.ops.ufield import UFieldParams
     from depthestimation_tpu_torch.parallel.train_step import (
         init_state, make_train_step)
@@ -1368,14 +1376,19 @@ def _lc_route(card, tag, keys, want, rule4: bool):
     gen = torch.Generator(device=dev).manual_seed(0)
     log_uniform = float(np.log(1.0 / 64))
     reset_counts()
+    planner_dp.launches = 0
     losses, aux = [], None
     for i in range(5):                  # the 5th forward: after 4 updates
         before = launch_counts()
+        dp_before = planner_dp.launches
         state, loss, aux = step_on(state, fed(aux, "left"),
                                    fed(aux, "right"), gt, gt, gen)
         losses.append(loss.item())
         got = tuple(a - b for a, b in zip(launch_counts(), before))
         check(got == want, f"LC {tag} step {i}: launches {got} != {want}")
+        dp = planner_dp.launches - dp_before
+        check(dp == LC_DP_LAUNCHES, f"LC {tag} step {i}: {dp} planner DP "
+              f"launches, not one a solve ({LC_DP_LAUNCHES})")
         check(np.isfinite(losses[-1]), f"LC {tag} step {i}: loss {loss}")
         for side in ("left", "right"):
             pl = aux[f"prev_lc_{side}"]
@@ -1389,7 +1402,8 @@ def _lc_route(card, tag, keys, want, rule4: bool):
             check((pl - log_uniform).abs().max().item() > 0.5,
                   f"LC {tag} step {i}: prev_lc_{side} is the log-uniform "
                   f"prior: the curtains sensed nothing")
-    counted = dict(zip(COUNT_NAMES, launch_counts()))
+    counted = dict(zip(COUNT_NAMES, launch_counts()),
+                   planner_dp=planner_dp.launches)
     # the feedback changes the inputs from step to step, so the losses are
     # not one descent; with lr 1e-5 they stay near the first
     check(max(losses) <= 1.25 * losses[0],
@@ -2085,6 +2099,70 @@ def phase_kernels_lc(card):
              convbn2d_block_bwd_plain, x, wt, a, b, True, ("relu",),
              2.0 * n * h2 * w2 * c * 9 * c, conv2d_lib)
     torch.cuda.empty_cache()
+
+
+def phase_planner_dp(card):
+    """Phase 3, the light-curtain planner's DP at the LC-on train step's
+    solve (``exp7lc-train-b8``: 48 fields, 16 items x 3, of 128 ranges on
+    768 rays, the cell's laser): the kernel against the plain version on
+    the card, bit-equal; event and device ms, launches per solve and the
+    bound (operations: a compare-add a hop, over the f32 peak). Returns
+    the kernel's row."""
+    import torch
+    from conv_bwd_split import device_launches, device_times
+    from depthestimation_tpu_torch.lc import LCDevice, PlannerRT
+    from depthestimation_tpu_torch.lc.planner import _dp_solve
+    from depthestimation_tpu_torch.ops import planner_dp_kernel as pk
+    from depthestimation_tpu_torch.ops.dpv import powerf
+
+    m, r, w = 48, 128, 768
+    intr = np.array([[0.6 * w, 0, w / 2], [0, 0.6 * w, 128], [0, 0, 1]],
+                    np.float32)
+    ltc = np.eye(4, dtype=np.float32)
+    ltc[0, 3] = 0.2
+    cam = {"width": w, "height": 256, "matrix": intr,
+           "distortion": [0.0] * 5, "hit_mode": 1, "hit_noise": 0.0}
+    laser = {"lTc": ltc, "fov": 80.0, "laser_timestep": 3.5e-5}
+    planner = PlannerRT(LCDevice(cam, laser, "cuda"),
+                        powerf(3.0, 40.0, r, 1.0), w)
+    gen = torch.Generator().manual_seed(19)
+    field = torch.rand(m, r, w, generator=gen)
+    field[1::3] = torch.round(field[1::3] * 4) / 4      # exact ties
+    field = field.cuda()
+    bits, xz = planner._kernel_bits(), planner._xz
+    pen = planner._penalty_of(0, w - 1)
+    cols = torch.arange(w, device="cuda")
+
+    def kernel():
+        return pk.planner_dp(field, bits, xz)
+
+    def plain():
+        idx = _dp_solve(field, pen)
+        return xz[cols, idx], idx
+
+    (pts, idx), (pts_p, idx_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(idx, idx_p) and torch.equal(pts, pts_p),
+          f"planner DP: the kernel's path differs from the plain one on "
+          f"{int((idx != idx_p).sum())} of {idx.numel()} rays")
+    before = pk.planner_dp.launches
+    ms = cuda_ms(kernel, 20)
+    check(pk.planner_dp.launches == before + 22,
+          "planner DP: not one launch a solve")
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    dev_ms = sum(device_times(kernel, 10).values())
+    dev_plain = sum(device_times(plain, 2).values())
+    n_k, n_p = device_launches(kernel), device_launches(plain)
+    bd = bound(nbytes(field, bits, xz, pts, idx), 2.0 * m * (w - 1) * r * r,
+               FP32_FLOPS)
+    print(f"phase 3: planner DP M={m} R={r} C={w} (bit-equal to the plain "
+          f"solve, ties included): kernel {ms:.4f} ms a solve (device "
+          f"{dev_ms:.4f}), {n_k} launch; plain {plain_ms:.4f} ms (device "
+          f"{dev_plain:.4f}), {n_p} launches; bound {bd[0]:.4f} ms "
+          f"({bd[1]}) [{card}]", flush=True)
+    del field, pen
+    torch.cuda.empty_cache()
+    return row(0.0, ms, plain_ms, None, bd)
 
 
 # ------------------------------------------------------------ phase 11
@@ -3986,6 +4064,7 @@ def main() -> int:
         rows = phase_kernels(card)
         rows.update(phase_kernels_flow(card))
         phase_kernels_lc(card)
+        rows["planner_dp"] = phase_planner_dp(card)
         phase_server(card)
         phase_flagship(card)
         launches = phase_train(card)
@@ -4042,6 +4121,12 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": counted[name],
                         **rows[key]})
+    # the planner's DP replaces no TPU kernel (JAX's lax.scan); its
+    # launches: the LC-on step's 5 steps on the flat route (phase 8)
+    kernels.append({"name": "planner_dp", "route": "cuda",
+                    "source": src + "planner_dp.cu", "replaces": None,
+                    "launches": lc_launches["planner_dp"],
+                    **rows["planner_dp"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

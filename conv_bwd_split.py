@@ -105,14 +105,32 @@ def device_times(fn, iters: int = ITERS, cold: bool = False) -> dict:
             fn()
         torch.cuda.synchronize()
     per = {}
+    for key, us, _ in _kernels(prof):
+        if not (cold and "FillFunctor" in key):
+            per[key] = per.get(key, 0.0) + us / 1e3 / iters
+    return per
+
+
+def device_launches(fn) -> int:
+    """The device kernels one call of ``fn`` launches (the profiler's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for _, _, n in _kernels(prof))
+
+
+def _kernels(prof):
+    """(name, device us, launches) of each device kernel ``prof`` saw."""
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")) \
-                and not (cold and "FillFunctor" in ev.key):
-            per[ev.key] = per.get(ev.key, 0.0) + us / 1e3 / iters
-    return per
+        if us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
+            yield ev.key, us, ev.count
 
 
 def _own(per: dict) -> float:

@@ -6,15 +6,20 @@ to the galvo's angular-velocity limit between consecutive rays (and, with
 ``max_alpha``, its acceleration limit).
 
 Where JAX runs one ``lax.scan`` per field under ``vmap``, the port batches
-the solver over every leading axis of the cost field (fields and items):
-one ``[M, R, R]`` max-plus step per camera column, the back-pointers kept
-on the device, the backtrack a ``gather`` per column. Nothing reads a value
-back to the host. The transition penalties depend only on the geometry and
-are built once. The arithmetic is JAX's: float32, ``NEG = -1e30`` for an
-infeasible hop, and the first index among equal maxima (``torch.max`` and
-``torch.argmax`` return it, as ``jnp.argmax`` does), so the design points
-are the same on the same field. The setup runs in numpy float64 and is cast
-once.
+the solver over every leading axis of the cost field (fields and items).
+On the card the velocity-only solve is one launch of a hand-written kernel
+(``ops/planner_dp_kernel.py``, ``csrc/planner_dp.cu``): the column loop,
+the backtrack and the lookup of the design points. On the CPU it is the
+plain version, ``_dp_solve``: one ``[M, R, R]`` max-plus step per camera
+column, the back-pointers kept as tensors, the backtrack a ``gather`` per
+column. The acceleration-limited solve (``max_alpha``) is a loop of the
+same kind on both devices. Nothing reads a value back to the host. The
+transition penalties depend only on the geometry and are built once (the
+kernel reads them packed into bits). The arithmetic is JAX's: float32,
+``NEG = -1e30`` for an infeasible hop, and the first index among equal
+maxima (``torch.max`` and ``torch.argmax`` return it, as ``jnp.argmax``
+does, and the kernel keeps it), so the design points are the same on the
+same field. The setup runs in numpy float64 and is cast once.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from depthestimation_tpu_torch.ops import planner_dp_kernel
 from depthestimation_tpu_torch.utils import profiling
 
 NEG = -1e30
@@ -63,26 +69,44 @@ class PlannerRT:
         self._xz = torch.as_tensor(
             np.stack([x, z], axis=-1).astype(np.float32), device=dev)
         self._penalty = None       # [C-1, R, R], built at the first solve
+        self._bits = None          # the kernel's, built at the first solve
 
     def get_design_points(self, cost_field) -> torch.Tensor:
         """cost_field [..., R, C] -> design points [..., C, 2] (x, z), one
         solve per leading index, all in one batched pass (the span
         ``lc.plan.dp``)."""
-        with profiling.span("lc.plan.dp"):
+        with profiling.span("lc.plan.dp") as sp:
             field = torch.as_tensor(cost_field, dtype=torch.float32,
                                     device=self._phi.device)
             lead = field.shape[:-2]
-            flat = field.reshape((-1,) + field.shape[-2:])
+            flat = field.reshape((-1,) + field.shape[-2:]).contiguous()
+            if self.ddphi_max is None and flat.device.type != "cpu":
+                sp.note(route="kernel")
+                pts, _ = planner_dp_kernel.planner_dp(
+                    flat, self._kernel_bits(), self._xz)
+                return pts.reshape(lead + (self.C, 2))
+            sp.note(route="plain")
             if self.ddphi_max is None:
                 if self._penalty is None:
-                    self._penalty = _velocity_penalty(self._phi,
-                                                      float(self.dphi_max))
+                    self._penalty = self._penalty_of(0, self.C - 1)
                 rs = _dp_solve(flat, self._penalty)
             else:
                 rs = _dp_solve_accel(flat, self._phi, float(self.dphi_max),
                                      float(self.ddphi_max))
             cols = torch.arange(self.C, device=rs.device)
             return self._xz[cols, rs].reshape(lead + (self.C, 2))
+
+    def _penalty_of(self, a: int, b: int) -> torch.Tensor:
+        """The velocity-only penalty [b - a, R, R] of hops a .. b-1."""
+        return _velocity_penalty(self._phi[a:b + 1], float(self.dphi_max))
+
+    def _kernel_bits(self) -> torch.Tensor:
+        """The penalty packed into the kernel's bits, at the first solve on
+        the card."""
+        if self._bits is None:
+            self._bits = planner_dp_kernel.feasible_bits(
+                self._penalty_of, self.C - 1, len(self.ranges))
+        return self._bits
 
 
 def _velocity_penalty(phi: torch.Tensor, dphi_max: float) -> torch.Tensor:

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "correlation_bwd": [_VP] * 5 + [_I] * 6 + [_VP],
     "conv3d_flat_fwd": [_VP] * 3 + [_I] * 9 + [_VP],
     "conv3d_flat_dw": [_VP] * 5 + [_I] * 8 + [_VP],
+    "planner_dp_fwd": [_VP] * 6 + [_I] * 4 + [_VP],
 }
 
 

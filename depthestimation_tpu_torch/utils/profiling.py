@@ -35,8 +35,9 @@ The spans, by layer:
   light-curtain loop);
 - ``lc.ufield``, ``lc.plan``, ``lc.sense``, ``lc.fuse``
   (``lc/process.lc_process``, one each an iteration) and ``lc.plan.dp``
-  (``lc/planner.PlannerRT.get_design_points``: the DP solve and the
-  gather);
+  (``lc/planner.PlannerRT.get_design_points``: the DP solve, on the card
+  one kernel launch; its attribute ``route`` is ``"kernel"`` or
+  ``"plain"``);
 - ``setup.kernel_lib`` (``ops/cuda_lib``'s build-or-load of the kernel
   library; its attribute ``built`` says whether the call built it) and
   ``setup.lc_init`` (``lc/curtain.LightCurtain.init``, its grids

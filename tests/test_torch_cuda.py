@@ -800,6 +800,104 @@ def test_planner_on_the_card_gives_the_cpu_design_points(dev, max_alpha):
     assert torch.equal(pts["cpu"], pts[str(dev)])
 
 
+def _dp_planners(dev, w, r, max_omega=None, timestep=3.5e-5):
+    """The same planner on the CPU and on the card: ``w`` rays of a 80
+    degree fan, ``r`` ranges from 3 to 30 m, the laser 0.2 m to the side."""
+    from depthestimation_tpu_torch.lc import LCDevice, PlannerRT
+    from depthestimation_tpu_torch.ops.dpv import powerf
+
+    intr = np.array([[0.6 * w, 0, w / 2], [0, 0.6 * w, 16], [0, 0, 1]],
+                    np.float32)
+    ltc = np.eye(4, dtype=np.float32)
+    ltc[0, 3] = 0.2
+    laser = {"lTc": ltc, "fov": 80.0, "laser_timestep": timestep}
+    if max_omega is not None:
+        laser["max_omega"] = max_omega
+    cam = {"width": w, "height": 32, "matrix": intr,
+           "distortion": [0.0] * 5, "hit_mode": 1, "hit_noise": 0.0}
+    return tuple(PlannerRT(LCDevice(cam, laser, d), powerf(3, 30, r, 1.0), w)
+                 for d in ("cpu", dev))
+
+
+def _dp_fields(m, r, w, seed):
+    """m fields cycling through: uniform, many exact ties, flat columns,
+    scattered NaN and +-inf, whole NaN columns."""
+    rs = np.random.RandomState(seed)
+    f = rs.rand(m, r, w).astype(np.float32)
+    for i in range(m):
+        kind = i % 5
+        if kind == 1:
+            f[i] = np.round(f[i] * 4) / 4
+        elif kind == 2:
+            f[i, :, ::3] = 0.0
+        elif kind == 3:
+            n = max(1, r * w // 50)
+            for v in (np.nan, np.inf, -np.inf):
+                f[i, rs.randint(0, r, n), rs.randint(0, w, n)] = v
+        elif kind == 4:
+            f[i, :, rs.randint(0, w, max(1, w // 8))] = np.nan
+    return torch.from_numpy(f)
+
+
+# (M, R, C, max_omega): the LC-on train step's solve (48 fields of 128
+# ranges on 768 rays) and planner_small's 192 rays; one field; R no
+# multiple of 32 (S = 16, 8, 2 lanes a node); R > 256 (16-bit
+# back-pointers) and R = 1024 with them in device memory; and a galvo so
+# slow that some nodes have no feasible predecessor
+_DP_SHAPES = [(48, 128, 768, None), (48, 128, 192, None), (1, 128, 768, None),
+              (3, 24, 48, None), (5, 37, 40, None), (7, 200, 96, None),
+              (2, 300, 64, None), (2, 1024, 160, None), (6, 128, 768, 1500.0),
+              (5, 40, 64, 800.0)]
+
+
+@pytest.mark.parametrize("m,r,w,omega", _DP_SHAPES)
+def test_planner_dp_kernel_equals_the_plain_solve(dev, m, r, w, omega):
+    """The kernel's range indices and design points equal ``_dp_solve``'s
+    on the CPU to the bit, ties, NaN and infinities included, with one
+    launch a solve."""
+    from depthestimation_tpu_torch.lc.planner import _dp_solve
+    from depthestimation_tpu_torch.ops import planner_dp_kernel as pk
+
+    cpu, card = _dp_planners(dev, w, r, omega)
+    pen = cpu._penalty_of(0, w - 1)
+    if omega is not None:        # some node has no feasible predecessor
+        assert not bool((pen == 0).any(dim=1).all())
+    field = _dp_fields(m, r, w, seed=m + r + w)
+    want_idx = _dp_solve(field, pen)
+    want = cpu._xz[torch.arange(w), want_idx]
+    before = pk.planner_dp.launches
+    got, idx = pk.planner_dp(field.to(dev), card._kernel_bits(), card._xz)
+    torch.cuda.synchronize()
+    assert pk.planner_dp.launches == before + 1
+    assert torch.equal(idx.cpu(), want_idx)
+    assert torch.equal(got.cpu(), want)
+    again, _ = pk.planner_dp(field.to(dev), card._kernel_bits(), card._xz)
+    assert torch.equal(again, got)
+    pts = card.get_design_points(field.to(dev).reshape(1, m, r, w))
+    assert pk.planner_dp.launches == before + 3
+    assert torch.equal(pts.cpu(), want.reshape(1, m, w, 2))
+
+
+def test_planner_solve_launches_only_its_kernel(dev):
+    """``get_design_points`` on the card at the LC-on step's shape runs the
+    kernel and no PyTorch kernel (once the bits exist), and counts one
+    launch; a CPU field leaves it as it was."""
+    from conv_bwd_split import device_launches, device_times
+    from depthestimation_tpu_torch.ops import planner_dp_kernel as pk
+
+    cpu, card = _dp_planners(dev, 768, 128)
+    field = _dp_fields(48, 128, 768, seed=3).to(dev)
+    card.get_design_points(field)
+    torch.cuda.synchronize()
+    before = pk.planner_dp.launches
+    names = list(device_times(lambda: card.get_design_points(field), 1))
+    assert len(names) == 1 and "planner_dp_kernel" in names[0], names
+    assert device_launches(lambda: card.get_design_points(field)) == 1
+    assert pk.planner_dp.launches == before + 4
+    cpu.get_design_points(field.cpu()[:2])
+    assert pk.planner_dp.launches == before + 4
+
+
 # ---- correlation (csrc/correlation.cu) and the flat conv3d op
 #      (csrc/conv3d_flat.cu), and a flow train step on the card
 

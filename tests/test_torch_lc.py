@@ -32,6 +32,8 @@ Random draws cannot match JAX's: ``plan_m1`` is fed JAX's own sampled
 indices through its ``sampled=`` seam, and the hit noise is off.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +59,9 @@ from depthestimation_tpu_torch.lc.fieldwarp import FieldWarp, digitize_soft
 from depthestimation_tpu_torch.lc.planner import PlannerRT
 from depthestimation_tpu_torch.lc.process import lc_process
 from depthestimation_tpu_torch.lc.transform import transform_points
+from depthestimation_tpu_torch.ops import cuda_lib
 from depthestimation_tpu_torch.ops import dpv as tdpv
+from depthestimation_tpu_torch.ops import planner_dp_kernel as pdk
 from depthestimation_tpu_torch.ops import geometry as tgeo
 from depthestimation_tpu_torch.ops import ufield as tuf
 from depthestimation_tpu_torch.ops.resample import interp
@@ -373,6 +377,135 @@ def test_planner_design_points_identical_to_jax(max_alpha, r):
     np.testing.assert_array_equal(one, got[0])
     two = pt.get_design_points(_t(fields).reshape(2, 2, r, W)).numpy()
     np.testing.assert_array_equal(two.reshape(4, W, 2), got)
+
+
+@pytest.mark.parametrize("max_alpha", [None, 4.0e7])
+def test_planner_cpu_solves_take_the_plain_path(max_alpha):
+    """A CPU field runs ``_dp_solve`` (or the ``max_alpha`` loop), never
+    the kernel: ``planner_dp.launches`` stays 0 and the span
+    ``lc.plan.dp`` notes the plain route."""
+    from depthestimation_tpu_torch.utils import profiling
+    cam, laser = _device_params(max_alpha=max_alpha)
+    pt = PlannerRT(LCDevice(cam, laser, "cpu"), jdpv.powerf(3.0, 30.0, 16,
+                                                            1.0), W)
+    before = pdk.planner_dp.launches
+    with profiling.recording() as rec:
+        pts = pt.get_design_points(_t(_fields(np.random.RandomState(3), 16,
+                                              W)))
+    assert pts.shape == (4, W, 2) and bool(torch.isfinite(pts).all())
+    assert pdk.planner_dp.launches == before
+    assert [s["attrs"] for s in rec.read()] == [{"route": "plain"}]
+    assert isinstance(pt._penalty, torch.Tensor) == (max_alpha is None)
+    assert pt._bits is None
+
+
+def test_planner_dp_kernel_is_in_the_library():
+    assert cuda_lib._SIGNATURES["planner_dp_fwd"] == (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    assert cuda_lib.CSRC / "planner_dp.cu" in cuda_lib._sources()
+
+
+@pytest.mark.parametrize("r", [1, 3, 24, 33, 128, 200, 257, 1024])
+def test_planner_feasibility_bits_in_the_kernels_scan_order(r):
+    """``pack_feasible``'s bits, read as the kernel reads them (lane q of
+    node r, word j // 32, bit j % 32 for predecessor rp = q + j * S),
+    give back the penalty; S lanes keep a block within 512 threads (1024
+    at one lane a node)."""
+    s = pdk.split(r)
+    assert s in (1, 2, 4, 8, 16, 32)
+    assert -(-r * s // 32) * 32 <= (pdk.THREADS if s > 1 else 1024)
+    assert s == 32 or -(-r * 2 * s // 32) * 32 > pdk.THREADS
+    rs = np.random.RandomState(r)
+    k = 3 if r < 500 else 1
+    pen = torch.from_numpy(np.where(rs.rand(k, r, r) < 0.5, 0.0,
+                                    -1e30).astype(np.float32))
+    bits = pdk.pack_feasible(pen, s)
+    assert bits.dtype == torch.int32 and bits.is_contiguous()
+    assert bits.shape == (k, pdk.words(r, s), r, s)
+    word = bits.to(torch.int64) & 0xFFFFFFFF
+    got = torch.zeros(k, r, r, dtype=torch.bool)
+    for q in range(min(s, r)):
+        for j in range(-(-(r - q) // s)):
+            bit = (word[:, j // 32, :, q] >> (j % 32)) & 1
+            got[:, q + j * s, :] = bit.bool()
+    assert torch.equal(got, pen == 0)
+
+
+@pytest.mark.parametrize("r,w", [(128, 200), (40, 64)])
+def test_planner_feasibility_bits_built_in_chunks(r, w):
+    """``feasible_bits`` packs the planner's penalty a chunk of hops at a
+    time (4 chunks at 128 ranges on 200 rays, one at 40 on 64) into the
+    same bits as ``pack_feasible`` of the whole penalty."""
+    cam, laser = _device_params(w=w)
+    laser["laser_timestep"] = 3.5e-5          # a galvo that cannot keep up
+    pt = PlannerRT(LCDevice(cam, laser, "cpu"), jdpv.powerf(3.0, 30.0, r,
+                                                            1.0), w)
+    whole = pt._penalty_of(0, w - 1)
+    assert whole.shape == (w - 1, r, r)
+    assert bool((whole == 0).any()) and bool((whole != 0).any())
+    calls = []
+
+    def penalty_of(a, b):
+        calls.append((a, b))
+        return pt._penalty_of(a, b)
+
+    bits = pdk.feasible_bits(penalty_of, w - 1, r)
+    assert torch.equal(bits, pdk.pack_feasible(whole, pdk.split(r)))
+    k = max(1, (1 << 20) // (r * r))
+    assert calls == [(a, min(a + k, w - 1)) for a in range(0, w - 1, k)]
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def call(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.mark.parametrize("r,c,scratch", [(128, 768, False),
+                                         (1024, 120, True)])
+def test_planner_dp_cuda_branch_on_meta_tensors(r, c, scratch, monkeypatch):
+    """The CUDA branch on ``meta`` tensors (no data, so it runs here): it
+    allocates the points and the indices (and the back-pointers' scratch
+    only where they outgrow shared memory), hands the C entry point as
+    many arguments as its signature has, counts one launch, and refuses
+    what the kernel does not take."""
+    rec = _Recorder()
+    monkeypatch.setattr(cuda_lib, "library", lambda: rec)
+    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(pdk.planner_dp, "launches", 0)
+    meta = torch.device("meta")
+    s = pdk.split(r)
+    field = torch.empty(48, r, c, device=meta)
+    bits = torch.empty(c - 1, pdk.words(r, s), r, s, dtype=torch.int32,
+                       device=meta)
+    xz = torch.empty(c, r, 2, device=meta)
+    pts, idx = pdk.planner_dp(field, bits, xz)
+    assert pts.shape == (48, c, 2) and pts.dtype == torch.float32
+    assert idx.shape == (48, c) and idx.dtype == torch.int64
+    assert pdk.planner_dp.launches == 1
+    (name, args), = rec.calls
+    assert name == "planner_dp_fwd"
+    assert len(args) == len(cuda_lib._SIGNATURES[name])
+    assert args[6:10] == (48, r, c, s)
+    assert (args[5] is not None) == scratch
+    for bad in (field.double(), field.transpose(1, 2),
+                torch.empty(48, r, 1, device=meta)):
+        with pytest.raises(ValueError):
+            pdk.planner_dp(bad, bits, xz)
+    for bad_bits in (bits[1:], bits.to(torch.int64), torch.empty(
+            bits.shape, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            pdk.planner_dp(field, bad_bits, xz)
+    with pytest.raises(ValueError):
+        pdk.planner_dp(field, bits, xz[1:])
+    with pytest.raises(ValueError):
+        pdk.planner_dp(torch.empty(1, 1025, c, device=meta), bits, xz)
+    with pytest.raises(ValueError):
+        pdk.planner_dp(torch.empty(48, r, c), torch.empty(
+            bits.shape, dtype=torch.int32), torch.empty(c, r, 2))
+    assert pdk.planner_dp.launches == 1
 
 
 # ---- LightCurtain ----------------------------------------------------------
