@@ -17,6 +17,10 @@ reference with fp8 operands in the program's place, judged as the program
 is. ``--faults`` seeds run each fault the cell can have (or those named)
 planted in the program. No window runs. The lines go to ``--out``, by
 default ``build/h100_bench/calib_<cell>.jsonl`` in the checkout.
+
+The cell's harness module (``run.harness_module``) runs it: a flow cell
+(``harness/flow.py``) has two controls, the reference with TF32 on and
+with bf16 operands, its own faults, and no light-curtain readings.
 """
 
 from __future__ import annotations
@@ -84,9 +88,10 @@ def _worst(checks: dict, world: int) -> dict:
 def _calibrate(rank: int, world: int, port: int, args) -> None:
     dev = bench.join_group(rank, world, port, "cuda")
     import torch
-    from harness import train
     spec = bench.load_spec(args.workload)
-    lc = bool(spec["config"]["lc"].get("enabled"))
+    train = bench.harness_module(spec)
+    flow = spec["harness"] == "flow"
+    lc = not flow and bool(spec["config"]["lc"].get("enabled"))
     if rank == 0 and not args.out:
         os.makedirs(os.path.join("build", "h100_bench"), exist_ok=True)
     out = open(args.out or os.path.join(
@@ -108,34 +113,44 @@ def _calibrate(rank: int, world: int, port: int, args) -> None:
 
         def hook(pr):
             if args.plain:
-                pr.state.model.use_kernels = False
+                model = pr.trainer.model if flow else pr.state.model
+                model.use_kernels = False
             if lc:
                 pa.attach(pr.lc.planner_large)
         o = train.run(spec, seed, 0, False, time.perf_counter(),
                       window=False, hook=hook, **kw)
-        ref = train.reference(spec, seed, seen=o["seen"],
-                              hook=(lambda rt: pb.attach(rt.lc.planner_large))
-                              if lc else None, **kw)
+        if lc:
+            kw_ref = dict(kw, hook=lambda rt: pb.attach(rt.lc.planner_large))
+        else:
+            kw_ref = kw
+        ref = train.reference(spec, seed, seen=o["seen"], **kw_ref)
         rec = {"kind": "plain" if args.plain else "sound", "seed": seed,
                "checks": train.compare(o["seen"], ref),
                "diagnosis": train.diagnose(o["seen"], ref),
-               "dpv_gap": ref["dpv_gap"], "setup_s": o["setup_s"]}
+               "dpv_gap": ref.get("dpv_gap"), "setup_s": o["setup_s"]}
         if lc:
             rec["ray_share"] = _ray_share(
                 pa, pb, int(spec["config"]["lc"]["iterations"]))
         emit(rec)
         torch.cuda.empty_cache()
+    kinds = list(train.CONTROLS) if flow else [None]
     for seed in _seeds(args.control, 29):
-        ctl, ref = train.control(spec, seed, **kw)
-        emit({"kind": "control", "seed": seed,
-              "checks": train.compare(ctl, ref),
-              "diagnosis": train.diagnose(ctl, ref)})
-        del ctl, ref
-        torch.cuda.empty_cache()
-    names = (args.fault_names.split(",") if args.fault_names else
-             ["half_batch"] + (["lc_altered", "lc_ignored", "lc_swapped"]
-                               if lc else [])
-             + (["no_exchange"] if world > 1 else []))
+        for kind in kinds:
+            ctl, ref = train.control(spec, seed, **kw, **(
+                {"kind": kind} if kind else {}))
+            emit({"kind": "control", "control": kind, "seed": seed,
+                  "checks": train.compare(ctl, ref),
+                  "diagnosis": train.diagnose(ctl, ref)})
+            del ctl, ref
+            torch.cuda.empty_cache()
+    if args.fault_names:
+        names = args.fault_names.split(",")
+    elif flow:
+        names = list(train.FAULTS)
+    else:
+        names = (["half_batch"] + (["lc_altered", "lc_ignored", "lc_swapped"]
+                                   if lc else [])
+                 + (["no_exchange"] if world > 1 else []))
     for seed in _seeds(args.faults, 31):
         ref = None
         for f in names:
@@ -165,7 +180,8 @@ def main(argv=None) -> int:
     p.add_argument("--faults", type=int, default=3)
     p.add_argument("--plain", action="store_true",
                    help="the program on its kernels' plain versions (a "
-                        "witness: bf16 arithmetic without the kernels)")
+                        "witness: the cell's arithmetic without the "
+                        "kernels)")
     p.add_argument("--fault-names", default=None,
                    help="the faults to plant, comma-separated (default: "
                         "every fault the cell can have)")

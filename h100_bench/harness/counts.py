@@ -5,7 +5,9 @@ The per-call counts copy ``chip_smoke.py``'s arithmetic (``bound``,
 2 x pixels x F x taps x C, a backward's twice the forward's (dx and dW),
 and the bytes are every input read once and every output written once.
 ``step_flops`` counts a whole train step from the configuration's shapes
-alone, so it does not depend on which implementation runs.
+alone, so it does not depend on which implementation runs;
+``flow_step_flops`` does the same for PWCLite's ARFlow step, which runs
+in f32 (its peak is ``F32_FLOPS``, TF32 being off).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 #: NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s, bf16 tensor FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+#: the same data sheet: float32 FLOP/s outside the tensor cores
+F32_FLOPS = 67e12
 
 
 def least_seconds(n_bytes: float, flops: float,
@@ -110,3 +114,69 @@ def step_flops(cfg: dict, batch: int) -> float:
     fwd = stem + enc + sweep + head + b3d + dec
     side = 3.0 * fwd - stem          # forward, dx, dW; no dx into the image
     return 2.0 * side
+
+
+def correlation_call(n, c, h, w, md):
+    """One cost-volume correlation call on f32 x1, x2 [n, c, h, w] at
+    search range ``md``: (forward bytes, forward ops, backward bytes,
+    backward ops). The forward takes a multiply-add per channel and
+    displacement of each output pixel; the backward twice that (dx1 and
+    dx2). Bytes: x1 and x2 read and the [n, (2md+1)^2, h, w] output
+    written; the backward reads x1, x2 and the output's cotangent and
+    writes dx1 and dx2."""
+    k = (2 * md + 1) ** 2
+    x, y = 4 * n * c * h * w, 4 * n * k * h * w
+    fl = 2.0 * n * k * c * h * w
+    return 2 * x + y, fl, 2 * x + y + 2 * x, 2 * fl
+
+
+def _pwc_levels(h, w):
+    """PWCLite's pyramid (``ref.pwclite.PYRAMID``, the published widths):
+    (height, width, channels), finest first, stride-2 convs with padding 1
+    from the image."""
+    from ref.pwclite import PYRAMID
+    out = []
+    for c in PYRAMID[1:]:
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        out.append((h, w, c))
+    return out
+
+
+def flow_step_flops(model: dict, batch: int, h: int, w: int) -> float:
+    """Operations of one ARFlow train step of PWCLite on B image pairs of
+    h x w (``model``: the configuration's model group): six pyramid
+    extractions (the teacher's two frames and each student's two) and
+    four two-frame passes (the teacher forward and backward, the two
+    students), each pass's levels up to ``output_level``: the 1x1 conv,
+    the correlation, the reduced estimator and the context network.
+    Forward, dx and dW for every conv (the stem takes no dx: its input is
+    an image) and forward plus twice it for the correlation, except the
+    teacher's backward pass: its flows reach the loss only through the
+    occlusion mask, a comparison, so autograd runs no backward of it.
+    Elementwise work (warps, resizes, the loss) is not counted."""
+    from ref.pwclite import CONTEXT, ESTIMATOR, PYRAMID
+    md, top = model["search_range"], model["output_level"]
+    levels = _pwc_levels(h, w)
+    stem = 0.0
+    ext = 0.0
+    cin = PYRAMID[0]
+    for i, (lh, lw, c) in enumerate(levels):
+        first = conv2d_flops(batch, lh, lw, cin, c)
+        if i == 0:
+            stem = first
+        ext += first + conv2d_flops(batch, lh, lw, c, c)
+        cin = c
+    k = (2 * md + 1) ** 2
+    pas = 0.0
+    corr = 0.0
+    for lh, lw, c in levels[::-1][:top + 1]:
+        corr += 2.0 * batch * k * c * lh * lw
+        pas += conv2d_flops(batch, lh, lw, c, 32, 1)
+        ein = k + 32 + 2
+        for ci, co in ESTIMATOR:
+            pas += conv2d_flops(batch, lh, lw, ci or ein, co)
+        cc = 32 + 2
+        for co, _ in CONTEXT:
+            pas += conv2d_flops(batch, lh, lw, cc, co)
+            cc = co
+    return 6 * (3.0 * ext - stem) + 3 * 3.0 * (pas + corr) + (pas + corr)

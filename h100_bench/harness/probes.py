@@ -9,6 +9,10 @@
   fused 2D ConvBN, Base3D's fused block, the sweep's stage 2), and the
   op's bytes and operations counted from the call's shapes (``counts``),
   forward and backward.
+- ``CorrelationProbes``, the same for PWCLite's step: the range around
+  ``models.pwclite.correlate`` and the correlation's counts; a call's
+  backward is counted when autograd runs it (the teacher's backward pass
+  reaches the loss only through a comparison, and gets none).
 
 Everything is put back when the context exits.
 """
@@ -144,3 +148,32 @@ class Probes(_Patches):
         if self._sweep_nz:
             least["sweep"] = s
         return {"least_s": least, "calls": dict(self.calls)}
+
+
+class CorrelationProbes(Probes):
+    def _correlation(self, x1, x2, md=4):
+        n, c, h, w = x1.shape
+        fb, ff, bb, bf = counts.correlation_call(n, c, h, w, md)
+        self.least_s["correlation"] += counts.least_seconds(
+            fb, ff, counts.F32_FLOPS)
+        return counts.least_seconds(bb, bf, counts.F32_FLOPS)
+
+    def _backward_ran(self, least):
+        def hook(grad):
+            self.least_s["correlation"] += least
+        return hook
+
+    def __enter__(self):
+        from depthestimation_tpu_torch.models import pwclite
+        orig = pwclite.correlate
+
+        def probed(*args, **kw):
+            self.calls["correlation"] += 1
+            bwd = self._correlation(*args, **kw)
+            with torch.profiler.record_function("bench.op.correlation"):
+                out = orig(*args, **kw)
+            if out.requires_grad:
+                out.register_hook(self._backward_ran(bwd))
+            return out
+        self._patch(pwclite, "correlate", probed)
+        return self

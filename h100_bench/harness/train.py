@@ -25,8 +25,9 @@ import time
 import numpy as np
 import torch
 
-from harness import probes, trace
+from harness import probes
 from harness.video import StereoVideo
+from harness.window import run as run_window
 from harness.weights import make_weights
 
 CHECKED_STEPS = 3
@@ -239,87 +240,10 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, t_start: float,
     return out
 
 
-class _Agree:
-    """Whether to run another step: rank 0's clock decides for every rank
-    (over a gloo group of the host, so asking waits on no device work)."""
-
-    def __init__(self):
-        import torch.distributed as dist
-        self.group = None
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            self.group = dist.new_group(backend="gloo")
-
-    def __call__(self, go: bool) -> bool:
-        if self.group is None:
-            return go
-        import torch.distributed as dist
-        flag = torch.tensor([int(go)], dtype=torch.int32)
-        dist.broadcast(flag, 0, group=self.group)
-        return bool(flag.item())
-
-
 def _window(prog, sched, seconds, traced, items_per_step, dev, spec, rank):
-    pos = CHECKED_STEPS
-    n = len(sched)
-    cuda = dev.type == "cuda"
-    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    if cuda:
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-    res = {}
-    losses = []
-    if not traced:
-        steps = 0
-        go = _Agree()
-        t0 = time.perf_counter()
-        while go(time.perf_counter() - t0 < seconds):
-            losses.append(prog.step(sched[pos % n])[0])
-            pos += 1
-            steps += 1
-        if cuda:
-            torch.cuda.synchronize(dev)
-        res["window_s"] = time.perf_counter() - t0
-        res["samples_per_s"] = steps * items_per_step / res["window_s"]
-    else:
-        # one cycle of the schedule as the window runs it, timed by the
-        # host's clock, with CUDA events around the light-curtain loop:
-        # the profiler slows the host and so the step, and the metrics of
-        # time per step read this cycle; the next, under the profiler,
-        # gives the device's busy time and the kernels' own times
-        steps = n
-        spans = probes.Spans(prog)
-        with spans:
-            if cuda:
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                losses.append(prog.step(sched[pos % n])[0])
-                pos += 1
-            if cuda:
-                torch.cuda.synchronize(dev)
-            res["untraced"] = {"steps": steps,
-                               "seconds": time.perf_counter() - t0,
-                               **spans.read()}
-        probe = probes.Probes(prog)
-        with probe:
-            with trace.profile() as prof:
-                with torch.profiler.record_function(trace.WINDOW):
-                    for _ in range(steps):
-                        losses.append(prog.step(sched[pos % n])[0])
-                        pos += 1
-                if cuda:
-                    torch.cuda.synchronize(dev)
-        path = spec["work_dir"] + f"/trace_{spec['cell']['name']}_{rank}.json"
-        res["trace"] = trace.summarize(prof, path, steps)
-        res["probe"] = probe.read()
-    res["steps"] = len(losses)
-    # a step whose loss is not finite failed
-    res["failed"] = int((~torch.isfinite(torch.stack(losses))).sum())
-    window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    res["peak_bytes"] = window_peak
-    res["memory_peak_bytes"] = max(setup_peak, window_peak)
-    return res
+    return run_window(prog, sched, seconds, traced, items_per_step, dev,
+                      spec, rank, start=CHECKED_STEPS, spans=probes.Spans,
+                      probes=probes.Probes)
 
 
 # -- the reference and the comparison ------------------------------------

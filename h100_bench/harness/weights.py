@@ -2,9 +2,11 @@
 
 One ``torch.randn`` call on a generator seeded from the run's seed fills
 every conv weight at once; each leaf then takes its slice, scaled to the
-model's initializer (fan-out normal, ``std = sqrt(2 / (k*k*out))`` for 2D
-convs and ``sqrt(2 / (27 * out))`` for 3D ones), a transposed conv the
-bilinear kernel, BatchNorm scales one and every bias zero. The names and
+model's initializer (He normal, by default over the fan-out, ``std =
+sqrt(2 / (k*k*out))`` for 2D convs and ``sqrt(2 / (27 * out))`` for 3D
+ones, the depth network's; ``fan="in"``, ``sqrt(2 / (k*k*in))``, is
+ARFlow's ``kaiming_normal_`` for PWCLite), a transposed conv the bilinear
+kernel, BatchNorm scales one and every bias zero. The names and
 shapes are the reference's parameter tree, which is the port's.
 """
 
@@ -33,9 +35,9 @@ def _kind(name: str, shape) -> str:
     return "normal"
 
 
-def make_weights(shapes: dict, seed: int, device) -> dict:
+def make_weights(shapes: dict, seed: int, device, fan: str = "out") -> dict:
     """name -> f32 tensor on ``device`` for every (name, shape) of
-    ``shapes``."""
+    ``shapes``; ``fan`` ("out" or "in") is the initializer's fan."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     normal = [(n, s) for n, s in shapes.items()
               if _kind(n, s) == "normal"]
@@ -44,8 +46,9 @@ def make_weights(shapes: dict, seed: int, device) -> dict:
     out, at = {}, 0
     for n, s in normal:
         k = math.prod(s)
-        fan = s[0] * math.prod(s[2:])      # out x spatial taps
-        out[n] = flat[at:at + k].view(s) * math.sqrt(2.0 / fan)
+        # (out or in) x spatial taps
+        f = (s[0] if fan == "out" else s[1]) * math.prod(s[2:])
+        out[n] = flat[at:at + k].view(s) * math.sqrt(2.0 / f)
         at += k
     for n, s in shapes.items():
         kind = _kind(n, s)

@@ -6,14 +6,18 @@
 from the root of a checkout. The cell is an entry of ``BENCHMARK.json``'s
 ``workloads``; its files are found by name: ``h100_bench/workloads/
 <cell>.json`` (the checked limits), ``h100_bench/configs/<config>.json``
-(the model's configuration as it is run) and ``h100_bench/traffic/
-<traffic>.json`` (batch, trajectories, frames, scenes); each per-layer
-metric is read by ``h100_bench/metrics/<metric>.py``.
+(the model's configuration as it is run, and the harness module that runs
+it: its ``harness`` key, ``train`` where it has none) and ``h100_bench/
+traffic/<traffic>.json`` (the traffic's parameters, which that module's
+generator reads); each per-layer metric is read by ``h100_bench/metrics/
+<metric>.py``.
 
 ``--trace 0`` measures the cell's end-to-end metrics over a window of
 ``--seconds``; ``--trace 1`` profiles a window of the schedule's steps and
 reports the per-layer metrics. Either way the run ends by comparing the
-three steps it checked against the f32 reference (``ref/``). The last
+three steps it checked against the f32 reference (``ref/``). A harness
+module (``harness/<name>.py``) has ``run``, ``reference``, ``compare``
+and ``diagnose``, called as ``_rank_main`` calls them. The last
 line of standard output is the result as one JSON object; the numbers
 compared, each beside its limit, are its last key and the last lines of
 standard error.
@@ -26,6 +30,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -55,6 +60,7 @@ def load_spec(workload: str) -> dict:
             "cell": dict(read("workloads", workload), name=workload),
             "config": conf["config"], "traffic": read("traffic",
                                                       cell["traffic"]),
+            "harness": conf.get("harness", "train"),
             "work_dir": os.path.join(ROOT, "build", "h100_bench")}
     spec["end_to_end"] = [m for m in bench["end_to_end"]
                           if workload in m.get("workloads", [workload])]
@@ -122,16 +128,22 @@ def gather(out, world: int):
     return outs if rank == 0 else None
 
 
+def harness_module(spec: dict):
+    """The module that runs the cell's configuration: ``harness.<name>``,
+    by the configuration file's ``harness`` key."""
+    return importlib.import_module("harness." + spec["harness"])
+
+
 def _rank_main(rank, world, port, args, spec, device="cuda"):
     """One rank: the run, the reference, its readings to rank 0."""
     dev = join_group(rank, world, port, device)
-    from harness import train
-    out = train.run(spec, args.seed, args.seconds, bool(args.trace), T_START,
-                    device=dev, rank=rank, world=world)
-    ref = train.reference(spec, args.seed, device=dev, rank=rank,
-                          world=world, seen=out["seen"])
-    out["checks"] = train.compare(out["seen"], ref)
-    out["diagnosis"] = train.diagnose(out["seen"], ref)
+    mod = harness_module(spec)
+    out = mod.run(spec, args.seed, args.seconds, bool(args.trace), T_START,
+                  device=dev, rank=rank, world=world)
+    ref = mod.reference(spec, args.seed, device=dev, rank=rank,
+                        world=world, seen=out["seen"])
+    out["checks"] = mod.compare(out["seen"], ref)
+    out["diagnosis"] = mod.diagnose(out["seen"], ref)
     out.pop("seen")
     return gather(out, world)
 

@@ -45,3 +45,34 @@ def test_step_count_is_the_sum_of_its_convs():
     lc = dict(cfg, var=dict(cfg["var"], nmode="exp7_lc"))
     assert counts.step_flops(lc, 8) - total == 2 * 3 * counts.conv2d_flops(
         512, 64, 192, 1, 32, 27)
+
+
+def test_one_correlation_call_at_pwclites_finest_level():
+    # B=8, C=32, 96x208, md 4: x1 and x2 (8 * 32 * 96 * 208 f32 each) read,
+    # the 81-channel output written
+    fb, ff, bb, bf = counts.correlation_call(8, 32, 96, 208, 4)
+    x, y = 4 * 8 * 32 * 96 * 208, 4 * 8 * 81 * 96 * 208
+    assert (fb, bb) == (2 * x + y, 4 * x + y)
+    assert ff == 2 * 8 * 81 * 32 * 96 * 208 and bf == 2 * ff
+    # bound by bytes: 0.0277 ms forward, 0.0399 backward
+    least = counts.least_seconds(fb, ff, counts.F32_FLOPS)
+    assert least == fb / counts.HBM_BPS
+    assert round(least * 1e3, 4) == 0.0277
+    assert round(counts.least_seconds(bb, bf, counts.F32_FLOPS) * 1e3,
+                 4) == 0.0399
+
+
+def test_flow_step_count_is_the_sum_of_its_parts():
+    m = {"search_range": 4, "output_level": 4}
+    total = counts.flow_step_flops(m, 8, 384, 832)
+    levels = counts._pwc_levels(384, 832)
+    assert levels[0] == (192, 416, 16) and levels[-1] == (6, 13, 192)
+    # the finest compared level (96x208, C=32): the estimator's first conv
+    # and the correlation, forward, in each of the four passes
+    est0 = counts.conv2d_flops(8, 96, 208, 81 + 32 + 2, 128)
+    corr = 2.0 * 8 * 81 * 32 * 96 * 208
+    assert 4 * (est0 + corr) < total
+    # every term is linear in the batch
+    one = counts.flow_step_flops(m, 1, 384, 832)
+    assert abs(total - 8 * one) < 1e-6 * total
+    assert round(total / 1e12, 2) == 5.42

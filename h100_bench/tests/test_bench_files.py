@@ -101,22 +101,47 @@ def test_nothing_imports_jax_or_the_jax_package():
             assert "depthestimation_tpu_torch" not in tops, path
 
 
-def test_a_run_loads_no_jax_module():
+@pytest.mark.parametrize("imports", [
+    "from harness import train, trace, probes, faults, counts, window\n"
+    "from ref import train as rt\n"
+    "import depthestimation_tpu_torch.trainer.default\n",
+    "from harness import flow, pairs\n"
+    "from ref import pwclite, flow_loss, flow_train\n"
+    "import depthestimation_tpu_torch.trainer.sintel\n"
+    "import depthestimation_tpu_torch.trainer.factory\n"
+    "import depthestimation_tpu_torch.losses.factory\n"], ids=["depth", "flow"])
+def test_a_run_loads_no_jax_module(imports):
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
         "import run, calibrate\n"
-        "from harness import train, trace, probes, faults, counts\n"
-        "from ref import train as rt\n"
-        "import depthestimation_tpu_torch.trainer.default\n"
+        "%s"
         "import depthestimation_tpu_torch.models.factory\n"
         "bad = {m.split('.')[0] for m in sys.modules} & %r\n"
-        "print(sorted(bad))\n" % (BENCH, ROOT, FORBIDDEN))
+        "print(sorted(bad))\n" % (BENCH, ROOT, imports, FORBIDDEN))
     env = dict(os.environ, USE_FLAX="0")
     env.pop("JAX_PLATFORMS", None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_a_config_without_a_harness_key_runs_the_depth_harness():
+    import run as bench
+    with open(os.path.join(BENCH, "configs", "kitti-exp7.json")) as f:
+        assert "harness" not in json.load(f)
+    spec = bench.load_spec("exp7-train-b8")
+    assert spec["harness"] == "train"
+    assert bench.harness_module(spec).__name__ == "harness.train"
+    assert bench.load_spec("pwclite-train-b8")["harness"] == "flow"
+
+
+def test_every_config_names_a_harness_module_with_its_four_functions():
+    import run as bench
+    for w in _bench()["workloads"]:
+        mod = bench.harness_module(bench.load_spec(w["name"]))
+        for fn in ("run", "reference", "compare", "diagnose", "control"):
+            assert callable(getattr(mod, fn)), (w["name"], fn)
 
 
 def test_run_without_a_card_exits_nonzero_and_prints_no_result():
